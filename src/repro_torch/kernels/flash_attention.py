@@ -1,0 +1,59 @@
+"""Causal GQA flash-attention forward with a Goldschmidt epilogue: the CUDA
+kernel's wrapper.
+
+Replaces the forward of ``repro.kernels.flash_attention`` (its
+``pallas_call`` in ``_fwd_call``).  The kernel is
+``csrc/flash_attention.cu``; its plain PyTorch version is
+:func:`repro_torch.kernels.ref.attention`.  Any ``S`` is taken as it is:
+the kernel masks the ragged last block instead of shrinking its block size
+to a divisor of ``S``.  ``launches`` counts the kernel launches this
+wrapper made.  The backward kernels come with the training slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.core.goldschmidt import rom
+from repro_torch.kernels import build
+
+HEAD_DIMS = (16, 32, 64)  # the head dims the kernel is compiled for
+launches = 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, sm_scale: Optional[float] = None,
+                    p: int, iters: int, variant: str) -> torch.Tensor:
+    """q (B, H, S, D), k/v (B, KH, S, D) with D in ``HEAD_DIMS``: contiguous
+    CUDA tensors of one dtype (f32 or bf16), H a multiple of KH.  Returns
+    q's shape and dtype."""
+    global launches
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("flash_attention kernel needs CUDA tensors on one device")
+    if q.dtype not in (torch.float32, torch.bfloat16) or not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"flash_attention kernel takes one dtype of f32/bf16, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+        raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    if d not in HEAD_DIMS or k.shape != (b, kh, s, d) or h % kh:
+        raise ValueError(f"flash_attention kernel needs D in {HEAD_DIMS}, matching B/S "
+                         f"and H % KH == 0; got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention kernel needs contiguous tensors")
+    build.check_datapath(p, iters, variant)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    out = torch.empty_like(q)
+    table = rom("recip", p, str(q.device))
+    rc = build.load().flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(), out.data_ptr(),
+        b, h, kh, s, d, sm_scale, int(causal), p, iters, int(variant == "pipelined"),
+        int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, "flash_attention")
+    launches += 1
+    return out
