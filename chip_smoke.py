@@ -9,7 +9,12 @@ Phases, in order; any failure exits nonzero before the last line:
    matmuls and cuDNN, and the CUDA kernels built from ``csrc/`` with nvcc.
 2. Kernels vs their plain PyTorch versions on the card: gs_rmsnorm at
    (rows, 2048), flash attention at (1, 32, S, 64) / (1, 4, S, 64), f32 and
-   bf16, held to the reference's ERR_BOUNDS (f32 2^-15, bf16 2^-4).
+   bf16, held to the reference's ERR_BOUNDS (f32 2^-15, bf16 2^-4); then at
+   the training shapes: the forward's (m, l) residuals, and dq, dk, dv at
+   (4, 32, S, 64) / (4, 4, S, 64), S 512 and 333, causal, f32 and bf16 (the
+   ``flash_attention`` row, as max error over the plain version's largest
+   element); gs_adam on a 1.1e6-element leaf and on one of 131 x 129
+   elements (the ``gs_adam`` row, f32 2^-18).
 3. Serve full-width tinyllama-1.1b (random weights from ``--seed``):
    ``Engine.run`` over 4 slots on 8 staggered requests (prompts 45..333
    tokens, 32 generated each) at float32, token for token against
@@ -17,14 +22,29 @@ Phases, in order; any failure exits nonzero before the last line:
    fp32 params) on the same trace, whose tokens must be valid.  Both runs
    must launch gs_rmsnorm 45 x (prefills + decode ticks) times and flash
    attention 22 x prefills times.
-4. Timing at the main path's shapes: each kernel, its plain version and
+4. Timing at the main paths' shapes: each kernel, its plain version and
    one PyTorch call computing the same function (``F.rms_norm`` x gain;
-   ``F.scaled_dot_product_attention`` on heads expanded beforehand) as a
-   yardstick the port never calls — per call from CUDA events over
+   ``F.scaled_dot_product_attention`` on heads expanded beforehand, and its
+   backward for dq and dk/dv; ``torch.optim.AdamW(fused=True).step()``) as
+   a yardstick the port never calls — per call from CUDA events over
    back-to-back calls (host launch cost included) and as device time from
    torch.profiler — beside the least time the card could take.
 5. Where a serving run's time goes: wall vs device-busy time and the top
    kernels of one short request, from torch.profiler.
+6. Train: (a) one step of a 2-layer full-width tinyllama (batch 2, seq 128,
+   f32) on the card through the kernels and on the CPU through the plain
+   versions, from the same weights: loss within 1e-4 relative, m and v
+   (the clipped gradients) leaf by leaf within 1e-3 of the largest
+   element, the params too except where the clipped gradient is within
+   10·eps of 0 (there the first Adam step g / (|g| + eps) is
+   ill-conditioned, and the bound is lr/4); then the update alone, the
+   CPU's clipped gradients through the card's AdamW (gs_adam) and the
+   CPU's, params, m and v within gs_adam's 2^-18; (b) full-width
+   22-layer tinyllama-1.1b, batch 4 x 512 tokens, f32, 10 steps of
+   ``run_training`` with a checkpoint at step 5: finite, falling loss,
+   exact launch counts, step time, tokens/s, peak memory and where one
+   step's device time goes (torch.profiler); (c) the published dtype (bf16
+   activations, f32 params), 3 steps, finite loss.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -160,6 +180,76 @@ def check_kernels():
     return worst
 
 
+def rel_err(got, want) -> float:
+    """Max error over the plain version's largest element."""
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+
+def check_training_kernels():
+    """The backward and optimizer kernels at the training path's shapes;
+    returns the worst max |error| of each kernel."""
+    from repro_torch.kernels import flash_attention as flash_kernel
+    from repro_torch.kernels import flash_attention_bwd as bwd_kernel
+    from repro_torch.kernels import gs_adam as adam_kernel
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    worst = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0, "gs_adam": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        bound = ERR_BOUNDS[name]
+        p, iters = (7, 2) if dtype == torch.float32 else (8, 0)
+        kw = dict(causal=True, p=p, iters=iters, variant="feedback")
+        for s in (512, 333):
+            q, do = (torch.randn(4, 32, s, 64, generator=g, device=dev).to(dtype)
+                     for _ in range(2))
+            k, v = (torch.randn(4, 4, s, 64, generator=g, device=dev).to(dtype)
+                    for _ in range(2))
+            out, m, l = flash_kernel.flash_attention(q, k, v, residuals=True, **kw)
+            want_out, want_m, want_l = ref.attention(q, k, v, residuals=True, **kw)
+            res_err = max(((m - want_m).abs() / want_m.abs().clamp_min(1.0)).max().item(),
+                          ((l - want_l).abs() / want_l).max().item())
+            out_err = (out.float() - want_out.float()).abs().max().item()
+            want = ref.attention_bwd(q, k, v, do, out, m, l, **kw)
+            got = bwd_kernel.flash_attention_bwd(q, k, v, do, out, m, l, **kw)
+            errs = [rel_err(a, b) for a, b in zip(got, want)]
+            abs_errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, want)]
+            print(f"  flash residuals {name} (4, 32, {s}, 64): out max|err| {out_err:.3e}, "
+                  f"m/l max rel err {res_err:.3e}; backward dq/dk/dv max err over the "
+                  f"largest element {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} "
+                  f"(bound {bound:.3e})")
+            if not (out_err <= bound and res_err <= 1e-5 and max(errs) <= bound):
+                fail(f"flash training kernels {name} S={s}: out {out_err}, m/l {res_err}, "
+                     f"grads {errs}")
+            worst["flash_attention_bwd_dq"] = max(worst["flash_attention_bwd_dq"], abs_errs[0])
+            worst["flash_attention_bwd_dkv"] = max(worst["flash_attention_bwd_dkv"],
+                                                   *abs_errs[1:])
+    bound = 2.0**-18  # benchmarks/bench_kernels.py ERR_BOUNDS["gs_adam"], f32
+    for n in (1_100_000, 131 * 129):
+        w, grad = (torch.randn(n, generator=g, device=dev) for _ in range(2))
+        m = 0.1 * torch.randn(n, generator=g, device=dev)
+        v = 1e-2 * torch.rand(n, generator=g, device=dev)
+        grad[::97] = 0.0
+        v[::97] = 0.0
+        for step in (1, 10):
+            bc = ops.adam_scalars(step, 1e-3, beta1=0.9, beta2=0.95, device=dev)
+            kw = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1, p=7, iters=2,
+                      variant="feedback")
+            got = adam_kernel.gs_adam_update(w, grad, m, v, bc, **kw)
+            want = ref.adam_update(w, grad, m, v, bc, **kw)
+            errs = [rel_err(a, b) for a, b in zip(got, want)]
+            print(f"  gs_adam f32 ({n},) step {step}: p/m/v max err over the largest "
+                  f"element {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} (bound {bound:.3e})")
+            if not max(errs) <= bound:
+                fail(f"gs_adam n={n} step={step}: {errs}")
+            worst["gs_adam"] = max(worst["gs_adam"], *[(a - b).abs().max().item()
+                                                       for a, b in zip(got, want)])
+    torch.cuda.synchronize()
+    return worst
+
+
 # -- phase 3 -------------------------------------------------------------------
 
 
@@ -191,11 +281,12 @@ def serve_run(engine, reqs, n_layers: int):
     res = engine.run(reqs)
     counts = ops.launch_counts()
     m = res.metrics
-    want = {"gs_rmsnorm": (2 * n_layers + 1) * (m.first_tokens + m.decode_ticks),
-            "flash_attention": n_layers * m.first_tokens}
+    want = {name: 0 for name in counts}  # the training kernels: none
+    want.update({"gs_rmsnorm": (2 * n_layers + 1) * (m.first_tokens + m.decode_ticks),
+                 "flash_attention": n_layers * m.first_tokens})
     print(f"  launches {counts}; expected {want} "
           f"({m.first_tokens} prefills, {m.decode_ticks} decode ticks)")
-    if counts != want or min(counts.values()) == 0:
+    if counts != want or min(counts["gs_rmsnorm"], counts["flash_attention"]) == 0:
         fail(f"launch counts {counts} != {want}")
     return res, counts
 
@@ -207,13 +298,14 @@ def serve(seed: int):
     from repro_torch.models import api
     from repro_torch.serving import (FINISH_NUMERIC, Engine, EngineConfig, Request,
                                      generate_sequential)
+    from repro_torch.tree import tree_leaves
 
     cfg = configs.get_config("tinyllama-1.1b", dtype="float32")
     s_max = max(PROMPTS) + GEN
     t0 = time.perf_counter()
     params = api.init(cfg, seed=seed, device="cuda")
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
           f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
           f"{n_params / 1e9:.3f} B f32 params initialised in "
@@ -269,17 +361,6 @@ def serve(seed: int):
     del params, engine
     torch.cuda.empty_cache()
     return counts, serve_stats
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 # -- phase 4 -------------------------------------------------------------------
@@ -347,6 +428,90 @@ def time_kernels():
     return rows
 
 
+def time_training_kernels():
+    """The training path's kernels at its full-width shapes: the flash
+    backward at (4, 32, 512, 64) / (4, 4, 512, 64) f32, causal, and gs_adam
+    on the embedding leaf (32000 x 2048)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as flash_kernel
+    from repro_torch.kernels import flash_attention_bwd as bwd_kernel
+    from repro_torch.kernels import gs_adam as adam_kernel
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows = {}
+    b, h, kh, s, hd = 4, 32, 4, 512, 64
+    q, do = (torch.randn(b, h, s, hd, generator=g, device=dev) for _ in range(2))
+    k, v = (torch.randn(b, kh, s, hd, generator=g, device=dev) for _ in range(2))
+    kw = dict(causal=True, sm_scale=hd**-0.5, p=7, iters=2, variant="feedback")
+    out, m, l = flash_kernel.flash_attention(q, k, v, residuals=True, **kw)
+    delta = torch.sum(do * out, dim=-1)
+    dq_call = lambda: bwd_kernel.dq(q, k, v, do, m, l, delta, **kw)  # noqa: E731
+    dkv_call = lambda: bwd_kernel.dkv(q, k, v, do, m, l, delta, **kw)  # noqa: E731
+    plain = lambda: ref.attention_bwd(q, k, v, do, out, m, l, **kw)  # noqa: E731
+    qe = q.clone().requires_grad_()
+    ke = k.repeat_interleave(h // kh, dim=1).requires_grad_()
+    ve = v.repeat_interleave(h // kh, dim=1).requires_grad_()
+    sdpa_out = F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
+    lib = lambda: torch.autograd.grad(sdpa_out, (qe, ke, ve), do, retain_graph=True)  # noqa: E731
+    fwd = lambda: flash_kernel.flash_attention(q, k, v, residuals=True, **kw)  # noqa: E731
+    t = {name: cuda_ms(fn, n) for name, fn, n in (
+        ("dq", dq_call, 10), ("dkv", dkv_call, 10), ("plain", plain, 3), ("lib", lib, 10),
+        ("fwd", fwd, 10))}
+    dev_ms = {name: device_ms(fn, 5) for name, fn in (
+        ("dq", dq_call), ("dkv", dkv_call), ("plain", plain), ("lib", lib), ("fwd", fwd))}
+    pairs = s * (s + 1) // 2  # causal (query, key) pairs this input needs
+    mm = 2 * b * h * hd * pairs  # flops of one S x S x D product over these pairs
+    elt = 4
+    in_bytes = (2 * b * h + 2 * b * kh) * s * hd * elt + 3 * b * h * s * 4
+    for name, n_mm, out_bytes in (("dq", 3, b * h * s * hd * elt),
+                                  ("dkv", 4, 2 * b * h * s * hd * 4)):
+        bound, by = bound_ms(in_bytes + out_bytes, n_mm * mm, "float32")
+        rows[("flash_attention_bwd_" + name, "float32")] = dict(
+            ms=t[name], plain_ms=t["plain"], library_ms=t["lib"], bound_ms=bound,
+            bound_by=by, device_ms=[dev_ms[name], dev_ms["plain"], dev_ms["lib"]],
+            shape=f"({b}, {h}, {s}, {hd}) float32 causal")
+    pair_bound, _ = bound_ms(in_bytes + 3 * b * h * s * hd * 4, 5 * mm, "float32")
+    us = lambda x: "not measured" if x is None else f"{x * 1e3:.1f} us"  # noqa: E731
+    print(f"  flash forward with residuals ({b}, {h}, {s}, {hd}) f32: {us(t['fwd'])} per "
+          f"call, device time {us(dev_ms['fwd'])}")
+    print(f"  flash backward pair (dq + dk/dv) {(t['dq'] + t['dkv']) * 1e3:.1f} us against "
+          f"the pair's bound {pair_bound * 1e3:.2f} us (2.5x the forward's matmul flops); "
+          f"SDPA backward {t['lib'] * 1e3:.1f} us (it computes dq, dk and dv in one call)")
+
+    n = 32000 * 2048
+    w, grad = (torch.randn(n, generator=g, device=dev) for _ in range(2))
+    m0 = 0.1 * torch.randn(n, generator=g, device=dev)
+    v0 = 1e-2 * torch.rand(n, generator=g, device=dev)
+    bc = ops.adam_scalars(3, 1e-3, beta1=0.9, beta2=0.95, device=dev)
+    akw = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1, p=7, iters=2,
+               variant="feedback")
+    kern = lambda: adam_kernel.gs_adam_update(w, grad, m0, v0, bc, **akw)  # noqa: E731
+    plain = lambda: ref.adam_update(w, grad, m0, v0, bc, **akw)  # noqa: E731
+    leaf = torch.nn.Parameter(w.clone())
+    leaf.grad = grad.clone()
+    opt = torch.optim.AdamW([leaf], lr=1e-3, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1,
+                            fused=True)
+    lib = opt.step
+    t = [cuda_ms(kern, 10), cuda_ms(plain, 2), cuda_ms(lib, 10)]
+    dev_t = [device_ms(fn, 5) for fn in (kern, plain, lib)]
+    bound, by = bound_ms(28 * n, 30 * n, "float32")
+    rows[("gs_adam", "float32")] = dict(ms=t[0], plain_ms=t[1], library_ms=t[2],
+                                        bound_ms=bound, bound_by=by, device_ms=dev_t,
+                                        shape=f"({n},) float32")
+    for (kname, label), r in rows.items():
+        print(f"  {kname} {r['shape']}: per call (CUDA events, back to back) kernel "
+              f"{us(r['ms'])}, plain {us(r['plain_ms'])}, library {us(r['library_ms'])}; "
+              f"device time (profiler) kernel {us(r['device_ms'][0])}, plain "
+              f"{us(r['device_ms'][1])}, library {us(r['device_ms'][2])}; bound "
+              f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+    del q, k, v, do, out, w, grad, m0, v0, leaf, opt
+    torch.cuda.empty_cache()
+    return rows
+
+
 def profile_serving(seed: int):
     """Where a serving run's time goes: one request (prompt 97, 9 tokens)
     through the f32 engine under the profiler — wall time, device busy
@@ -378,6 +543,221 @@ def profile_serving(seed: int):
             print(f"    {ms:8.2f} ms  {name[:110]}")
     del params, engine
     torch.cuda.empty_cache()
+
+
+# -- phase 6 -------------------------------------------------------------------
+
+
+def train_args(**over):
+    """Parsed ``repro_torch.launch.train`` arguments for full-width tinyllama."""
+    from repro_torch.launch import train
+
+    argv = ["--arch", "tinyllama-1.1b", "--device", "cuda", "--log-every", "1"]
+    for key, val in over.items():
+        argv += [f"--{key.replace('_', '-')}", str(val)]
+    return train.parser().parse_args(argv)
+
+
+def check_train_step_against_cpu(seed: int):
+    """(a) one step of a 2-layer full-width tinyllama on the card (kernels)
+    and on the CPU (plain versions) from the same weights and batch."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data.synthetic import SyntheticLM, make_batch
+    from repro_torch.launch.steps import TrainHParams, lr_at, make_train_step
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.optim.adamw import clip_by_global_norm
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    cfg = dataclasses.replace(configs.get_config("tinyllama-1.1b", dtype="float32"),
+                              n_layers=2)
+    hp = TrainHParams(peak_lr=1e-3, warmup=0, total=10)  # warmup 0: step 0 moves
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=128, global_batch=2, seed=seed)
+    host = api.init(cfg, seed=seed, device="cpu")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = tree_map(lambda t: t.to(dev), host)
+        t0 = time.perf_counter()
+        out[dev] = make_train_step(cfg, hp)(params, adamw_init(params),
+                                            make_batch(ds, 0, dev))
+        loss = out[dev][2]["loss"].item()
+        print(f"  2-layer step on {dev}: loss {loss:.6f}, grad norm "
+              f"{out[dev][2]['grad_norm'].item():.6f}, {time.perf_counter() - t0:.1f} s")
+    (p_gpu, o_gpu, m_gpu), (p_cpu, o_cpu, m_cpu) = out["cuda"], out["cpu"]
+    loss_err = abs(m_gpu["loss"].item() - m_cpu["loss"].item()) / abs(m_cpu["loss"].item())
+    # m = (1-b1)·g and v = (1-b2)·g² after one step from zeros: they hold the
+    # clipped gradients themselves, leaf by leaf
+    mv_err = max(rel_err(a.cpu(), b) for a, b in zip(
+        tree_leaves((o_gpu["m"], o_gpu["v"])), tree_leaves((o_cpu["m"], o_cpu["v"]))))
+    # the first AdamW step is u = g / (|g| + eps): where the clipped gradient
+    # is nonzero but within 10·eps of 0, u is a ratio of two near-zero
+    # numbers, and the last-ulp differences of two summation orders move it
+    # (8.6e-5 at most with seed 0 on an H100); there the bound is lr/4,
+    # elsewhere 1e-3 of the leaf's largest element
+    near_bound = hp.peak_lr / 4
+    near_zero, p_err, p_err_near = 0, 0.0, 0.0
+    for a, b, m in zip(tree_leaves(p_gpu), tree_leaves(p_cpu), tree_leaves(o_cpu["m"])):
+        d = (a.cpu() - b).abs()
+        ill = (m.abs() < (1 - hp.beta1) * 10 * 1e-8) & (m != 0)  # exact 0: no update
+        near_zero += int(ill.sum())
+        p_err = max(p_err, (torch.where(ill, 0.0, d).max() / b.abs().max()).item())
+        p_err_near = max(p_err_near, d[ill].max().item() if ill.any() else 0.0)
+    moved = max((a.cpu() - b).abs().max().item()
+                for a, b in zip(tree_leaves(p_gpu), tree_leaves(host)))
+    n = sum(t.numel() for t in tree_leaves(host))
+    print(f"  card vs CPU: loss rel err {loss_err:.3e} (bound 1e-4); m, v (the clipped "
+          f"gradients) worst leaf err over its largest element {mv_err:.3e} (bound 1e-3); "
+          f"params worst leaf err over its largest element {p_err:.3e} (bound 1e-3) on "
+          f"{n - near_zero} of {n} elements; on the {near_zero} whose clipped gradient is "
+          f"nonzero and within 10·eps of 0, max |err| {p_err_near:.3e} (bound lr/4 = "
+          f"{near_bound:.1e}); the step moved a param by up to {moved:.3e}")
+    if not (loss_err <= 1e-4 and mv_err <= 1e-3 and p_err <= 1e-3
+            and p_err_near <= near_bound and moved > 0):
+        fail(f"2-layer train step: loss err {loss_err}, m/v err {mv_err}, param err {p_err} "
+             f"/ {p_err_near} near zero, moved {moved}")
+    del out, p_gpu, o_gpu, m_gpu
+    torch.cuda.empty_cache()
+
+    # the update alone on the same inputs, the ill-conditioned elements
+    # included: the CPU's clipped gradients of this batch through the card's
+    # adamw_update (the gs_adam kernel, once per leaf) and the CPU's (its
+    # plain version), held to gs_adam's bound
+    policy = cfg.optimizer_policy()
+    live = tree_map(lambda t: t.detach().requires_grad_(), host)
+    grads = torch.autograd.grad(api.loss_fn(cfg, live, make_batch(ds, 0, "cpu")),
+                                tree_leaves(live))
+    clipped, _ = clip_by_global_norm(tree_unflatten(host, list(grads)), hp.clip_norm, policy)
+    del live, grads
+    upd = {}
+    for dev in ("cuda", "cpu"):
+        params = tree_map(lambda t: t.to(dev), host)
+        state = adamw_init(params)
+        new_p, new_o, _ = adamw_update(
+            params, tree_map(lambda t: t.to(dev), clipped), state, lr=lr_at(hp, state["step"]),
+            policy=policy, beta1=hp.beta1, beta2=hp.beta2, weight_decay=hp.weight_decay,
+            clip_norm=None)
+        upd[dev] = tree_leaves((new_p, new_o["m"], new_o["v"]))
+    upd_err = max(rel_err(a.cpu(), b) for a, b in zip(upd["cuda"], upd["cpu"]))
+    near_abs = 0.0
+    for a, b, g in zip(upd["cuda"], upd["cpu"], tree_leaves(clipped)):  # the params
+        ill = (g.abs() < 10 * 1e-8) & (g != 0)
+        if ill.any():
+            near_abs = max(near_abs, (a.cpu() - b).abs()[ill].max().item())
+    print(f"  AdamW alone on the CPU's clipped gradients, card vs CPU: params, m, v worst "
+          f"leaf err over its largest element {upd_err:.3e} (bound 2^-18 = {2.0**-18:.3e}); "
+          f"on the params whose clipped gradient is nonzero and within 10·eps of 0, "
+          f"max |err| {near_abs:.3e}")
+    if not upd_err <= 2.0**-18:
+        fail(f"2-layer AdamW update on the same gradients: err {upd_err}")
+    del upd, clipped, host
+    torch.cuda.empty_cache()
+
+
+def step_breakdown(events, wall_ms: float):
+    """Device time of one step by kernel family, and the top kernels."""
+    families = (("flash bwd dq", "flash_bwd_dq"), ("flash bwd dk/dv", "flash_bwd_dkv"),
+                ("flash fwd", "flash_fwd"), ("gs_adam", "gs_adam"),
+                ("gs_rmsnorm", "gs_rmsnorm"), ("matmul (cuBLAS)", "gemm"))
+    by_family, by_name = {}, {}
+    for e in events:
+        ms = e.time_range.elapsed_us() / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        fam = next((f for f, key in families if key in e.name), "other")
+        by_family[fam] = by_family.get(fam, 0.0) + ms
+    busy = sum(by_family.values())
+    print(f"  one step under the profiler: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / wall_ms:.1f}%), {len(events)} device events")
+    for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
+        print(f"    {ms:9.2f} ms  {100 * ms / busy:5.1f}%  {fam}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {ms:9.2f} ms  {name[:110]}")
+    return busy, by_family
+
+
+def train_full(seed: int, dtype: str, steps: int, ckpt_every: int):
+    """(b)/(c): ``run_training`` on full-width tinyllama-1.1b, batch 4 x 512;
+    the launch counters zeroed just before and read just after."""
+    import shutil
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.runtime.driver import run_training
+    from repro_torch.tree import tree_leaves
+
+    ckpt_dir = ROOT / "build" / f"chip_smoke_ckpt_{dtype}"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    args = train_args(steps=steps, batch=4, seq=512, dtype=dtype, seed=seed,
+                      ckpt_every=ckpt_every, ckpt_dir=ckpt_dir)
+    cfg, kw = train.build(args)
+    make_step_fn, step_ms = kw["make_step_fn"], []
+
+    def timed_step_fn():
+        fn = make_step_fn()
+
+        def step(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return step
+
+    kw["make_step_fn"] = timed_step_fn
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = run_training(**kw)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [stats["losses"][i] for i in range(steps)]
+    n_leaves = len(tree_leaves(stats["state"].params))
+    want = {"gs_rmsnorm": (2 * cfg.n_layers + 1) * steps, "flash_attention": cfg.n_layers * steps,
+            "flash_attention_bwd_dq": cfg.n_layers * steps,
+            "flash_attention_bwd_dkv": cfg.n_layers * steps, "gs_adam": n_leaves * steps}
+    med = float(np.median(step_ms[1:])) if len(step_ms) > 1 else step_ms[0]
+    tokens = args.batch * args.seq
+    print(f"  {dtype}: {cfg.n_layers} layers, {n_leaves} parameter leaves, {steps} steps in "
+          f"{wall:.1f} s (checkpoints included); losses {[round(x, 4) for x in losses]}")
+    print(f"  step time: first {step_ms[0]:.1f} ms, median of the rest {med:.1f} ms "
+          f"-> {tokens / med * 1e3:.0f} tokens/s; peak device memory {peak_gb:.2f} GB")
+    print(f"  launches {counts}; expected {want}")
+    if not all(np.isfinite(losses)):
+        fail(f"{dtype} training: non-finite loss {losses}")
+    if counts != want:
+        fail(f"{dtype} training launch counts {counts} != {want}")
+    last = latest_step(str(ckpt_dir))
+    with open(ckpt_dir / f"step_{last:08d}" / "manifest.json") as f:
+        manifest = json.load(f)
+    print(f"  final checkpoint: step {manifest['step']}, {len(manifest['leaves'])} leaves in "
+          f"the reference's layout (e.g. {sorted(manifest['leaves'])[0]})")
+    if manifest["step"] != steps or "opt_state__step" not in manifest["leaves"]:
+        fail(f"{dtype} training: final checkpoint {manifest['step']} is not step {steps}")
+    result = dict(losses=losses, step_ms=step_ms, median_step_ms=med,
+                  tokens_per_s=tokens / med * 1e3, peak_gb=peak_gb, counts=counts)
+    if dtype == "float32":
+        if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            fail(f"float32 training: loss did not fall {losses}")
+        state = stats["state"]
+        step = kw["make_step_fn"]()
+        batch = kw["make_batch"](steps)
+        step(state.params, state.opt_state, batch)  # warm
+        wall_ms, events = profiled(lambda: step(state.params, state.opt_state, batch))
+        if events:
+            result["busy_ms"], result["by_family"] = step_breakdown(events, wall_ms)
+            result["profiled_wall_ms"] = wall_ms
+        else:
+            print(f"  one step: wall {wall_ms:.1f} ms; device time not measured "
+                  "(the profiler saw no CUDA events)")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del stats
+    torch.cuda.empty_cache()
+    return result
 
 
 def main() -> None:
@@ -415,29 +795,49 @@ def main() -> None:
 
     print("== 2. kernels vs plain versions")
     worst = check_kernels()
+    worst.update(check_training_kernels())
 
     print("== 3. serve full-width tinyllama-1.1b")
     counts, stats = serve(args.seed)
 
-    print("== 4. timing at the main path's shapes")
+    print("== 4. timing at the main paths' shapes")
     timing = time_kernels()
+    timing.update(time_training_kernels())
 
     print("== 5. where a serving run's time goes (profiler)")
     profile_serving(args.seed)
 
-    picks = {"gs_rmsnorm": ("decode", "src/repro_torch/kernels/csrc/gs_rmsnorm.cu",
-                            "src/repro/kernels/gs_rmsnorm.py:64"),
-             "flash_attention": ("float32", "src/repro_torch/kernels/csrc/flash_attention.cu",
-                                 "src/repro/kernels/flash_attention.py:142")}
+    print("== 6. train full-width tinyllama-1.1b")
+    check_train_step_against_cpu(args.seed)
+    train32 = train_full(args.seed, "float32", steps=10, ckpt_every=5)
+    train16 = train_full(args.seed, "bfloat16", steps=3, ckpt_every=5)
+
+    picks = {"gs_rmsnorm": ("decode", "gs_rmsnorm.cu", "gs_rmsnorm.py:64"),
+             "flash_attention": ("float32", "flash_attention.cu", "flash_attention.py:142"),
+             "flash_attention_bwd_dq": ("float32", "flash_attention_bwd.cu",
+                                        "flash_attention.py:311"),
+             "flash_attention_bwd_dkv": ("float32", "flash_attention_bwd.cu",
+                                         "flash_attention.py:338"),
+             "gs_adam": ("float32", "gs_adam.cu", "gs_adam.py:114")}
     kernels = []
     for name, (label, source, replaces) in picks.items():
         r = timing[(name, label)]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": counts[name],
+        serving = name in ("gs_rmsnorm", "flash_attention")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"src/repro_torch/kernels/csrc/{source}",
+                        "replaces": f"src/repro/kernels/{replaces}",
+                        "launches": counts[name] if serving else train32["counts"][name],
                         "max_abs_err": worst[name], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "device_ms": r["device_ms"][0], "shape": r["shape"]})
+                        "device_ms": r["device_ms"][0], "shape": r["shape"],
+                        "launches_train_f32": train32["counts"][name]})
+    train_stats = {k: {key: v[key] for key in ("median_step_ms", "tokens_per_s", "peak_gb",
+                                                "losses")}
+                   for k, v in (("float32", train32), ("bfloat16", train16))}
+    train_stats["float32"]["busy_ms"] = train32.get("busy_ms")
+    train_stats["float32"]["profiled_wall_ms"] = train32.get("profiled_wall_ms")
+    print(f"  training: {json.dumps(train_stats)}")
     print(f"  serving: {json.dumps(stats)}")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -61,3 +61,10 @@ class ArchConfig:
         return NumericsPolicy(
             mode=self.policy_mode, p_bits=self.gs_p_bits, iters=self.gs_iters,
             target_bits=target_bits_for(self.dtype))
+
+    def optimizer_policy(self) -> NumericsPolicy:
+        """Optimizer policy: the accuracy budget is the PARAM/state dtype, so
+        f32 training keeps the (7, 2) datapath whatever the activations."""
+        return NumericsPolicy(
+            mode=self.policy_mode, p_bits=self.gs_p_bits, iters=self.gs_iters,
+            target_bits=target_bits_for(self.param_dtype))

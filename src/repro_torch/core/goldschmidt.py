@@ -21,8 +21,20 @@ count) and ``pipelined`` (one fresh pair per pass, the unrolled form).
 Normalize/renormalize is the branch-free IEEE-754 field peel: subnormal
 magnitudes are pre-scaled by 2^24 so the peel sees a true mantissa, and the
 renormalize splits the exponent into two exact power-of-two factors so
-gradual underflow and overflow round once.  Gradients are not defined here;
-the ``torch.autograd.Function`` VJPs come with the training slice.
+gradual underflow and overflow round once.
+
+Gradients: the bit peel has none, so each public op is a
+``torch.autograd.Function`` whose backward is the reference's ``custom_vjp``
+rule on the saved forward output q (the converged quotient is treated as
+exact):
+
+    d(1/x)     = -q²·ḡ
+    d(n/d)     : dn = ḡ·GS(1/d),  dd = -ḡ·q·GS(1/d)   (unbroadcast)
+    d(x^-1/2)  = -½·q³·ḡ
+    d(sqrt x)  = ½·GS(1/q)·ḡ
+
+where GS(1/·) is one more Goldschmidt reciprocal pass in the backward, so
+no hardware divide runs there either.
 """
 
 from __future__ import annotations
@@ -227,15 +239,8 @@ def _sign(x32: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.signbit(x32), -1.0, 1.0).to(torch.float32)
 
 
-def gs_reciprocal(d: torch.Tensor, *, p: int | None = None,
-                  iters: int | None = None, variant: str = "feedback",
-                  target_bits: int | None = None) -> torch.Tensor:
-    """Goldschmidt 1/d, any sign and scale; returns d's dtype.
-
-    ``(p, iters)`` default to the :func:`precision_policy` pair for d's dtype
-    (or ``target_bits``): (7, 2) for fp32, seed-only (8, 0) for bf16.
-    """
-    p, iters = resolve_precision(d.dtype, p, iters, target_bits)
+def _reciprocal_impl(d: torch.Tensor, p: int, iters: int,
+                     variant: str) -> torch.Tensor:
     d32 = d.to(torch.float32)
     sign = _sign(d32)
     mag = d32.abs()
@@ -249,12 +254,10 @@ def gs_reciprocal(d: torch.Tensor, *, p: int | None = None,
     return out.to(d.dtype)
 
 
-def gs_divide(n: torch.Tensor, d: torch.Tensor, *, p: int | None = None,
-              iters: int | None = None, variant: str = "feedback",
-              target_bits: int | None = None) -> torch.Tensor:
-    """Goldschmidt n/d with the numerator folded into q1 (MULT 1)."""
+def _divide_impl(n: torch.Tensor, d: torch.Tensor, p: int, iters: int,
+                 variant: str) -> torch.Tensor:
+    """n/d with the numerator folded into q1 (MULT 1)."""
     dtype = torch.result_type(n, d)
-    p, iters = resolve_precision(dtype, p, iters, target_bits)
     n32, d32 = n.to(torch.float32), d.to(torch.float32)
     sign = torch.where(torch.signbit(n32) ^ torch.signbit(d32), -1.0,
                        1.0).to(torch.float32)
@@ -276,11 +279,8 @@ def gs_divide(n: torch.Tensor, d: torch.Tensor, *, p: int | None = None,
     return out.to(dtype)
 
 
-def gs_rsqrt(x: torch.Tensor, *, p: int | None = None,
-             iters: int | None = None, variant: str = "feedback",
-             target_bits: int | None = None) -> torch.Tensor:
-    """Goldschmidt 1/sqrt(x); rsqrt(±0) = ±inf, x < 0 or nan → nan."""
-    p, iters = resolve_precision(x.dtype, p, iters, target_bits)
+def _rsqrt_impl(x: torch.Tensor, p: int, iters: int, variant: str) -> torch.Tensor:
+    """1/sqrt(x); rsqrt(±0) = ±inf, x < 0 or nan → nan."""
     x32 = x.to(torch.float32)
     e, g, h = _rsqrt_seed(x32, p)
     _, h = _rsqrt_iterate(g, h, iters, variant)
@@ -291,11 +291,8 @@ def gs_rsqrt(x: torch.Tensor, *, p: int | None = None,
     return out.to(x.dtype)
 
 
-def gs_sqrt(x: torch.Tensor, *, p: int | None = None,
-            iters: int | None = None, variant: str = "feedback",
-            target_bits: int | None = None) -> torch.Tensor:
-    """Goldschmidt sqrt(x): the g-sequence; sqrt(±0) = ±0, x < 0 → nan."""
-    p, iters = resolve_precision(x.dtype, p, iters, target_bits)
+def _sqrt_impl(x: torch.Tensor, p: int, iters: int, variant: str) -> torch.Tensor:
+    """sqrt(x), the g-sequence; sqrt(±0) = ±0, x < 0 → nan."""
     x32 = x.to(torch.float32)
     e, g, h = _rsqrt_seed(x32, p)
     g, _ = _rsqrt_iterate(g, h, iters, variant)
@@ -304,3 +301,119 @@ def gs_sqrt(x: torch.Tensor, *, p: int | None = None,
     out = torch.where(torch.isinf(x32), float("inf"), out)
     out = torch.where((x32 < 0.0) | torch.isnan(x32), float("nan"), out)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# VJPs on the saved forward output (the reference's custom_vjp rules)
+# ---------------------------------------------------------------------------
+
+
+def _unbroadcast(g: torch.Tensor, shape, dtype) -> torch.Tensor:
+    """Reduce a cotangent back to a (possibly broadcast) operand's shape."""
+    if tuple(g.shape) != tuple(shape):
+        lead = g.dim() - len(shape)
+        if lead:
+            g = g.sum(dim=tuple(range(lead)))
+        keep = tuple(i for i, (a, b) in enumerate(zip(g.shape, shape)) if a != b)
+        if keep:
+            g = g.sum(dim=keep, keepdim=True)
+    return g.to(dtype)
+
+
+class _Reciprocal(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, d, p, iters, variant):
+        q = _reciprocal_impl(d, p, iters, variant)
+        ctx.save_for_backward(q)
+        return q
+
+    @staticmethod
+    def backward(ctx, g):
+        (q,) = ctx.saved_tensors
+        q32 = q.to(torch.float32)
+        return (-(q32 * q32) * g.to(torch.float32)).to(q.dtype), None, None, None
+
+
+class _Divide(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, n, d, p, iters, variant):
+        q = _divide_impl(n, d, p, iters, variant)
+        ctx.save_for_backward(q, n, d)
+        ctx.gs = (p, iters, variant)
+        return q
+
+    @staticmethod
+    def backward(ctx, g):
+        q, n, d = ctx.saved_tensors
+        inv_d = _reciprocal_impl(d.to(torch.float32), *ctx.gs)
+        g32 = g.to(torch.float32)
+        dn = g32 * inv_d
+        dd = -g32 * q.to(torch.float32) * inv_d
+        return (_unbroadcast(dn, n.shape, n.dtype), _unbroadcast(dd, d.shape, d.dtype),
+                None, None, None)
+
+
+class _Rsqrt(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, p, iters, variant):
+        q = _rsqrt_impl(x, p, iters, variant)
+        ctx.save_for_backward(q)
+        return q
+
+    @staticmethod
+    def backward(ctx, g):
+        (q,) = ctx.saved_tensors
+        q32 = q.to(torch.float32)
+        return (-0.5 * q32 * q32 * q32 * g.to(torch.float32)).to(q.dtype), None, None, None
+
+
+class _Sqrt(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, p, iters, variant):
+        q = _sqrt_impl(x, p, iters, variant)
+        ctx.save_for_backward(q)
+        ctx.gs = (p, iters, variant)
+        return q
+
+    @staticmethod
+    def backward(ctx, g):
+        (q,) = ctx.saved_tensors
+        inv = _reciprocal_impl(q.to(torch.float32), *ctx.gs)
+        return (0.5 * inv * g.to(torch.float32)).to(q.dtype), None, None, None
+
+
+def gs_reciprocal(d: torch.Tensor, *, p: int | None = None,
+                  iters: int | None = None, variant: str = "feedback",
+                  target_bits: int | None = None) -> torch.Tensor:
+    """Goldschmidt 1/d, any sign and scale; returns d's dtype.
+
+    ``(p, iters)`` default to the :func:`precision_policy` pair for d's dtype
+    (or ``target_bits``): (7, 2) for fp32, seed-only (8, 0) for bf16.
+    Differentiable: ``-q²·ḡ`` on the saved quotient.
+    """
+    p, iters = resolve_precision(d.dtype, p, iters, target_bits)
+    return _Reciprocal.apply(d, p, iters, variant)
+
+
+def gs_divide(n: torch.Tensor, d: torch.Tensor, *, p: int | None = None,
+              iters: int | None = None, variant: str = "feedback",
+              target_bits: int | None = None) -> torch.Tensor:
+    """Goldschmidt n/d (differentiable: one backward pass for 1/d)."""
+    p, iters = resolve_precision(torch.result_type(n, d), p, iters, target_bits)
+    return _Divide.apply(n, d, p, iters, variant)
+
+
+def gs_rsqrt(x: torch.Tensor, *, p: int | None = None,
+             iters: int | None = None, variant: str = "feedback",
+             target_bits: int | None = None) -> torch.Tensor:
+    """Goldschmidt 1/sqrt(x) (differentiable: ``-½q³·ḡ``)."""
+    p, iters = resolve_precision(x.dtype, p, iters, target_bits)
+    return _Rsqrt.apply(x, p, iters, variant)
+
+
+def gs_sqrt(x: torch.Tensor, *, p: int | None = None,
+            iters: int | None = None, variant: str = "feedback",
+            target_bits: int | None = None) -> torch.Tensor:
+    """Goldschmidt sqrt(x) (differentiable: ``½·GS(1/q)·ḡ``)."""
+    p, iters = resolve_precision(x.dtype, p, iters, target_bits)
+    return _Sqrt.apply(x, p, iters, variant)

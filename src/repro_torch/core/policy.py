@@ -7,6 +7,10 @@ RMSNorm rsqrt, the attention epilogue, the sampler) goes through a policy:
 * ``gs_pipelined`` — unrolled Goldschmidt,
 * ``gs_feedback``  — the paper's multiplier-reuse datapath.
 
+The Goldschmidt ops carry the reference's VJPs
+(:mod:`repro_torch.core.goldschmidt`), so clipping and the softmax
+differentiate through them.
+
 ``p_bits``/``iters`` left ``None`` derive per call from ``target_bits`` (set
 by the config to its compute dtype) or else the operand dtype.  The
 reference's fixed-point route (its ``fmt`` field, ``quant="int8"``) is not
@@ -83,8 +87,9 @@ class NumericsPolicy:
         return {"p": self.p_bits, "iters": self.iters}
 
     def softmax(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        """Numerically stable softmax with a Goldschmidt denominator."""
-        m = torch.amax(x, dim=dim, keepdim=True)
+        """Numerically stable softmax with a Goldschmidt denominator; the
+        max is held constant under differentiation, as in the reference."""
+        m = torch.amax(x, dim=dim, keepdim=True).detach()
         e = torch.exp(x - m)
         s = torch.sum(e, dim=dim, keepdim=True)
         return e * self.reciprocal(s)

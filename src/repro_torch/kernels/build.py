@@ -28,14 +28,23 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     # x, gain, rom, out, inv_out, rows, d, inv_d, eps, p, iters, pipelined,
     # rsqrt_scale, is_bf16, stream
     "gs_rmsnorm_launch": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _I, _F, _I, _P],
-    # q, k, v, rom, out, B, H, KH, S, D, sm_scale, causal, p, iters, pipelined,
-    # is_bf16, stream
-    "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
+    # q, k, v, rom, out, m_out, l_out, B, H, KH, S, D, sm_scale, causal, p,
+    # iters, pipelined, is_bf16, stream
+    "flash_attention_fwd": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
+    # q, k, v, dout, m, l, delta, rom, dq, B, H, KH, S, D, sm_scale, causal,
+    # p, iters, pipelined, is_bf16, stream
+    "flash_attention_bwd_dq": [_P] * 9 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
+    # as above with dk, dv in place of dq
+    "flash_attention_bwd_dkv": [_P] * 10 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
+    # param, grad, m, v, bc, rom_recip, rom_rsqrt, p_out, m_out, v_out, n,
+    # beta1, 1-beta1, beta2, 1-beta2, eps, weight_decay, p, iters, pipelined,
+    # rsqrt_scale, stream
+    "gs_adam_launch": [_P] * 10 + [_L] + [_F] * 6 + [_I] * 3 + [_F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

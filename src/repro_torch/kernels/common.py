@@ -9,8 +9,9 @@ every multiply and add unfused with ``__fmul_rn``/``__fadd_rn``):
 * ``pow2_from_biased`` — 2^(e-127) for a biased exponent clamped to
   [0, 254]; biased 0 gives +0 (flush at the range edge);
 * ``gs_recip_core`` / ``gs_rsqrt_core`` — ROM seed plus the step-2 passes;
-* ``recip_positive`` / ``rsqrt_positive`` — the epilogue forms for strictly
-  positive normal inputs, as the fused kernels use them.
+* ``recip_positive`` / ``rsqrt_positive`` / ``sqrt_positive`` — the
+  epilogue forms for strictly positive normal inputs, as the fused kernels
+  use them.
 
 The ROM read, a one-hot × table matmul on the TPU, is an indexed load here
 (``table[idx]``); on the card it is a load from the block's shared-memory
@@ -72,14 +73,26 @@ def recip_positive(x: torch.Tensor, table: torch.Tensor, *, p: int, iters: int,
     return q * pow2_from_biased(254 - e)
 
 
-def rsqrt_positive(x: torch.Tensor, table: torch.Tensor, *, p: int, iters: int,
-                   variant: str) -> torch.Tensor:
-    """1/sqrt(x) for strictly positive normal f32 x."""
+def _rsqrt_fold(x: torch.Tensor):
+    """x = m · 2^(2·half_e) with m ∈ [1, 4): an odd exponent folds into m."""
     _, e, mant = split_fields(x)
     m = mantissa_to_m(mant)
     E = e - 127
     odd = (E & 1) != 0
-    m = torch.where(odd, m * 2.0, m)
-    half_e = torch.where(odd, E - 1, E) >> 1
+    return torch.where(odd, m * 2.0, m), torch.where(odd, E - 1, E) >> 1
+
+
+def rsqrt_positive(x: torch.Tensor, table: torch.Tensor, *, p: int, iters: int,
+                   variant: str) -> torch.Tensor:
+    """1/sqrt(x) for strictly positive normal f32 x."""
+    m, half_e = _rsqrt_fold(x)
     _, h = gs_rsqrt_core(m, table, p=p, iters=iters, variant=variant)
     return (2.0 * h) * pow2_from_biased(127 - half_e)
+
+
+def sqrt_positive(x: torch.Tensor, table: torch.Tensor, *, p: int, iters: int,
+                  variant: str) -> torch.Tensor:
+    """sqrt(x) for strictly positive normal f32 x: the g-sequence."""
+    m, half_e = _rsqrt_fold(x)
+    g, _ = gs_rsqrt_core(m, table, p=p, iters=iters, variant=variant)
+    return g * pow2_from_biased(127 + half_e)

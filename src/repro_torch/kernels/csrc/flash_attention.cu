@@ -3,7 +3,10 @@
 // Replaces: src/repro/kernels/flash_attention.py::_kernel (the forward
 // pallas_call in _fwd_call): online-softmax attention over
 // q (B, H, S, D), k/v (B, KH, S, D), GQA via kv_head = h / (H / KH), output
-// acc * GS(1 / max(l, 1e-30)).
+// acc * GS(1 / max(l, 1e-30)); when asked (the differentiated forward), also
+// the (B, H, S) f32 row statistics m (running max of sm_scale * q k^T, masked
+// logits at -1e30) and l (the unguarded sum of exp(s - m)), the residuals
+// of the backward kernels in flash_attention_bwd.cu.
 //
 // Bound on this card: at prefill (S ~ 100-500, H 32, D 64) the work is
 // 4*H*S^2*D/2 causal flops against (q + k + v + o) bytes, ~S/4 flops per
@@ -40,7 +43,8 @@ template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ rom_g,
-                 T* __restrict__ out, int H, int KH, int S, float sm_scale,
+                 T* __restrict__ out, float* __restrict__ m_out,
+                 float* __restrict__ l_out, int H, int KH, int S, float sm_scale,
                  int causal, int p, int iters, int pipelined) {
   constexpr int kHalf = kD / 2;
   extern __shared__ float smem[];
@@ -119,29 +123,36 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* op = out + ((int64_t)b * H + h) * S * kD + (int64_t)row * kD;
 #pragma unroll
     for (int i = 0; i < kHalf; ++i) op[2 * i + half] = gs::from_f32<T>(acc[i] * inv);
+    // both threads of a pair hold the same m and l; one writes them
+    if (m_out != nullptr && half == 0) {
+      const int64_t r = ((int64_t)b * H + h) * S + row;
+      m_out[r] = m;
+      l_out[r] = l;
+    }
   }
 }
 
 template <typename T, int kD>
 void launch(const void* q, const void* k, const void* v, const void* rom, void* out,
-            int B, int H, int KH, int S, float sm_scale, int causal, int p, int iters,
-            int pipelined, cudaStream_t stream) {
+            void* m_out, void* l_out, int B, int H, int KH, int S, float sm_scale,
+            int causal, int p, int iters, int pipelined, cudaStream_t stream) {
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
   const size_t smem = (2 * kBlockKV * kD + (1u << p)) * sizeof(float);
   flash_fwd_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(rom), static_cast<T*>(out), H, KH, S, sm_scale, causal,
-      p, iters, pipelined);
+      static_cast<const float*>(rom), static_cast<T*>(out), static_cast<float*>(m_out),
+      static_cast<float*>(l_out), H, KH, S, sm_scale, causal, p, iters, pipelined);
 }
 
 template <typename T>
 int launch_for_dim(int D, const void* q, const void* k, const void* v, const void* rom,
-                   void* out, int B, int H, int KH, int S, float sm_scale, int causal,
-                   int p, int iters, int pipelined, cudaStream_t stream) {
+                   void* out, void* m_out, void* l_out, int B, int H, int KH, int S,
+                   float sm_scale, int causal, int p, int iters, int pipelined,
+                   cudaStream_t stream) {
   switch (D) {
-    case 16: launch<T, 16>(q, k, v, rom, out, B, H, KH, S, sm_scale, causal, p, iters, pipelined, stream); break;
-    case 32: launch<T, 32>(q, k, v, rom, out, B, H, KH, S, sm_scale, causal, p, iters, pipelined, stream); break;
-    case 64: launch<T, 64>(q, k, v, rom, out, B, H, KH, S, sm_scale, causal, p, iters, pipelined, stream); break;
+    case 16: launch<T, 16>(q, k, v, rom, out, m_out, l_out, B, H, KH, S, sm_scale, causal, p, iters, pipelined, stream); break;
+    case 32: launch<T, 32>(q, k, v, rom, out, m_out, l_out, B, H, KH, S, sm_scale, causal, p, iters, pipelined, stream); break;
+    case 64: launch<T, 64>(q, k, v, rom, out, m_out, l_out, B, H, KH, S, sm_scale, causal, p, iters, pipelined, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -150,18 +161,19 @@ int launch_for_dim(int D, const void* q, const void* k, const void* v, const voi
 }  // namespace
 
 // q, out: (B, H, S, D); k, v: (B, KH, S, D), all contiguous, f32 or bf16
-// (is_bf16), D in {16, 32, 64}; rom: (2^p,) f32 reciprocal table.
+// (is_bf16), D in {16, 32, 64}; rom: (2^p,) f32 reciprocal table; m_out,
+// l_out: (B, H, S) f32, both null or both set.
 // Returns cudaGetLastError() (cudaErrorInvalidValue for another D).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   const void* rom, void* out, int B, int H,
-                                   int KH, int S, int D, float sm_scale, int causal,
-                                   int p, int iters, int pipelined, int is_bf16,
-                                   void* stream) {
+                                   const void* rom, void* out, void* m_out, void* l_out,
+                                   int B, int H, int KH, int S, int D, float sm_scale,
+                                   int causal, int p, int iters, int pipelined,
+                                   int is_bf16, void* stream) {
   if (B == 0 || S == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_for_dim<__nv_bfloat16>(D, q, k, v, rom, out, B, H, KH, S, sm_scale,
-                                         causal, p, iters, pipelined, s);
-  return launch_for_dim<float>(D, q, k, v, rom, out, B, H, KH, S, sm_scale, causal, p,
-                               iters, pipelined, s);
+    return launch_for_dim<__nv_bfloat16>(D, q, k, v, rom, out, m_out, l_out, B, H, KH,
+                                         S, sm_scale, causal, p, iters, pipelined, s);
+  return launch_for_dim<float>(D, q, k, v, rom, out, m_out, l_out, B, H, KH, S, sm_scale,
+                               causal, p, iters, pipelined, s);
 }

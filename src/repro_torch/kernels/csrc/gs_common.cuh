@@ -126,6 +126,19 @@ __device__ __forceinline__ float rsqrt_positive(float x, const Rom& rom) {
   return __fmul_rn(__fmul_rn(2.0f, h), pow2_from_biased(127 - half_e));
 }
 
+// sqrt(x) for strictly positive normal f32 x: the g-sequence of the same
+// iteration (rsqrt_positive(..., mode="sqrt") of the reference).
+__device__ __forceinline__ float sqrt_positive(float x, const Rom& rom) {
+  float m = mantissa_to_m(mantissa_bits(x));
+  const int e = biased_exp(x) - 127;
+  const bool odd = (e & 1) != 0;
+  if (odd) m = __fmul_rn(m, 2.0f);
+  const int half_e = (odd ? e - 1 : e) >> 1;
+  float g, h;
+  gs_rsqrt_core(m, rom, g, h);
+  return __fmul_rn(g, pow2_from_biased(127 + half_e));
+}
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 

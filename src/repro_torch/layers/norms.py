@@ -1,5 +1,6 @@
 """RMSNorm with a Goldschmidt rsqrt (counterpart of ``repro.layers.norms``,
-``kernel_impl='pallas'`` route): every norm runs the fused kernel front-end.
+``kernel_impl='pallas'`` route): every norm runs the fused kernel front-end,
+which differentiates through the reference's rule when autograd records it.
 """
 
 from __future__ import annotations

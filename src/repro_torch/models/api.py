@@ -18,6 +18,17 @@ def init(cfg: ArchConfig, seed: int = 0, device=DEFAULT_DEVICE):
     return transformer.init(cfg, generator, dev)
 
 
+def forward(cfg: ArchConfig, params, batch):
+    """Training forward: ``batch["tokens"]`` (b, s) -> logits (b, s, vocab)."""
+    return transformer.forward(cfg, params, batch["tokens"])
+
+
+def loss_fn(cfg: ArchConfig, params, batch):
+    """Mean next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]``."""
+    return transformer.loss_fn(cfg, params, batch)
+
+
 def prefill(cfg: ArchConfig, params, batch):
     return transformer.prefill(cfg, params, batch["tokens"])
 

@@ -1,8 +1,9 @@
 """One residual block: norm -> attention -> +res -> norm -> MLP -> +res.
 
 Counterpart of ``repro.models.blocks`` for the dense attention block, in
-two modes: ``prefill`` (full sequence, emits the layer's K/V) and
-``decode`` (one token per row against the layer's cache, updated in place).
+three modes: ``train`` (full sequence, no state; differentiable end to
+end), ``prefill`` (full sequence, emits the layer's K/V) and ``decode``
+(one token per row against the layer's cache, updated in place).
 """
 
 from __future__ import annotations
@@ -32,9 +33,9 @@ def block_apply(cfg: ArchConfig, params: Dict, x: torch.Tensor, *, mode: str,
                 rope_cs: Tuple[torch.Tensor, torch.Tensor],
                 state: Optional[Dict[str, torch.Tensor]] = None,
                 cur_index: Optional[torch.Tensor] = None):
-    """x (b, s, d) -> (x, state).  ``prefill`` returns this layer's K/V
-    (b, s, KH, hd); ``decode`` writes them into ``state`` at ``cur_index``
-    and returns ``state``."""
+    """x (b, s, d) -> (x, state).  ``train`` returns no state;
+    ``prefill`` returns this layer's K/V (b, s, KH, hd); ``decode`` writes
+    them into ``state`` at ``cur_index`` and returns ``state``."""
     policy = cfg.policy()
     h = rmsnorm(params["norm1"], x, eps=cfg.norm_eps, policy=policy)
     q, k, v = attn.qkv(params["attn"], h)
@@ -44,9 +45,9 @@ def block_apply(cfg: ArchConfig, params: Dict, x: torch.Tensor, *, mode: str,
         kc, vc = attn.cache_update(state["k"], state["v"], k, v, cur_index)
         o = attn.decode_attention(q, kc, vc, cur_index, policy=policy)
         new_state = state
-    elif mode == "prefill":
+    elif mode in ("train", "prefill"):
         o = attn.flash(q, k, v, policy=policy, causal=True)
-        new_state = {"k": k, "v": v}
+        new_state = {"k": k, "v": v} if mode == "prefill" else None
     else:
         raise ValueError(f"unknown mode {mode!r}")
     x = x + attn.out_proj(params["attn"], o).to(x.dtype)

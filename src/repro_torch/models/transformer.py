@@ -2,7 +2,9 @@
 
 The reference scans a stacked layer axis; here ``_stack`` is a Python loop
 over a list of per-layer parameter dicts, and decode states are a list of
-per-layer ``{"k", "v"}`` caches of shape (b, S, KH, hd).
+per-layer ``{"k", "v"}`` caches of shape (b, S, KH, hd).  The reference
+wraps the scanned body in ``jax.checkpoint`` for training (remat); that
+changes no number and is not ported yet (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -52,15 +54,40 @@ def _stack(cfg: ArchConfig, params: Params, x: torch.Tensor, *, mode: str,
     return x, new_states
 
 
+def _positions_rope(cfg: ArchConfig, tokens: torch.Tensor):
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    return rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
+
+
+def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """Training forward: tokens (b, s) -> logits (b, s, vocab)."""
+    x, _ = _stack(cfg, params, embed_tokens(cfg, params, tokens), mode="train",
+                  rope_cs=_positions_rope(cfg, tokens))
+    return unembed(cfg, params, x)
+
+
+def loss_fn(cfg: ArchConfig, params: Params, batch) -> torch.Tensor:
+    """Mean next-token cross-entropy (log-domain: division-free)."""
+    return cross_entropy(forward(cfg, params, batch["tokens"]), batch["labels"])
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``mean(log Σ exp(l - m) + m - l[label])`` with the max ``m`` held
+    constant under differentiation, as in the reference."""
+    lf = logits.to(torch.float32)
+    m = torch.amax(lf, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+    gold = torch.gather(lf, -1, labels[..., None].to(torch.int64))[..., 0]
+    return torch.mean(lse - gold)
+
+
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor):
     """tokens (b, s) -> (last-position logits (b, 1, V), prefill-length
     states, next index s)."""
-    b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
-    rope_cs = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
     x, states = _stack(cfg, params, embed_tokens(cfg, params, tokens),
-                       mode="prefill", rope_cs=rope_cs)
-    return unembed(cfg, params, x[:, -1:, :]), states, s
+                       mode="prefill", rope_cs=_positions_rope(cfg, tokens))
+    return unembed(cfg, params, x[:, -1:, :]), states, tokens.shape[1]
 
 
 def decode_step(cfg: ArchConfig, params: Params, states: States,

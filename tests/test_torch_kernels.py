@@ -82,7 +82,9 @@ def test_cpu_tensors_take_plain_versions_and_count_no_launch():
         ref.rmsnorm(x, torch.ones(64), eps=1e-6, p=7, iters=2, variant="feedback").numpy())
     q = torch.randn(1, 4, 5, 64)
     ops.flash_attention(q, q[:, :2], q[:, :2])
-    assert ops.launch_counts() == {"gs_rmsnorm": 0, "flash_attention": 0}
+    assert ops.launch_counts() == {"gs_rmsnorm": 0, "flash_attention": 0,
+                                   "flash_attention_bwd_dq": 0,
+                                   "flash_attention_bwd_dkv": 0, "gs_adam": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
