@@ -45,6 +45,26 @@ Phases, in order; any failure exits nonzero before the last line:
    exact launch counts, step time, tokens/s, peak memory and where one
    step's device time goes (torch.profiler); (c) the published dtype (bf16
    activations, f32 params), 3 steps, finite loss.
+7. Serve full-width tinyllama-1.1b int8 (``quant="int8"``: int8 weights,
+   int8 KV, every division site on the fixed-point datapath): (a) the
+   three fixed kernels (gs_fixed_recip, gs_fixed_softmax,
+   gs_fixed_rmsnorm) against their plain versions on the card, over the
+   three formats of ``benchmarks/bench_kernels.py`` and both variants, at
+   (256, 128), (37, 200) and, for the rmsnorm, (4, 2048) and (333, 2048):
+   recip and rmsnorm bit-equal, all three within 2 x the format's error
+   bound of an f64 oracle (the bench's gate); (b) a 2-layer full-width cut
+   on the card and on the CPU, teacher-forced with the CPU's tokens through
+   a prefill and 8 decode steps: logits within 2 x the int8 format's bound
+   (2^-7) of the largest |logit| at every step; (c) ``Engine.run`` on phase
+   3's trace: valid tokens, exact launch counts, resident int8 params below
+   0.3 x the f32 tree, params + KV cache within 0.55 x the analytic bf16
+   pair (``benchmarks/bench_serve.py``'s QUANT_BYTES_BUDGET), the same
+   tokens on a second run; TTFT, tok/s, peak memory and the share of phase
+   3's f32 tokens matched as a prefix (printed, not gated), and phase 5's
+   profile of one request through the int8 engine; (d) the three
+   kernels timed at the path's shapes beside their plain versions and a
+   dequantize-then-library call (``F.rms_norm``, ``torch.reciprocal``,
+   ``torch.softmax`` on ``x.float() * scale``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -273,20 +293,23 @@ def top2_gap(cfg, params, prompt, prefix) -> float:
     return float(top[0] - top[1])
 
 
-def serve_run(engine, reqs, n_layers: int):
-    """One counted main-path run: counters zeroed just before, read just after."""
+def serve_run(engine, reqs, n_layers: int, fixed: bool = False):
+    """One counted main-path run: counters zeroed just before, read just
+    after.  The float path runs gs_rmsnorm, the int8 path (``fixed``)
+    gs_fixed_rmsnorm, at every norm."""
     from repro_torch.kernels import ops
 
     ops.reset_launch_counts()
     res = engine.run(reqs)
     counts = ops.launch_counts()
     m = res.metrics
-    want = {name: 0 for name in counts}  # the training kernels: none
-    want.update({"gs_rmsnorm": (2 * n_layers + 1) * (m.first_tokens + m.decode_ticks),
+    norm = "gs_fixed_rmsnorm" if fixed else "gs_rmsnorm"
+    want = {name: 0 for name in counts}  # the training kernels, the other norm: none
+    want.update({norm: (2 * n_layers + 1) * (m.first_tokens + m.decode_ticks),
                  "flash_attention": n_layers * m.first_tokens})
     print(f"  launches {counts}; expected {want} "
           f"({m.first_tokens} prefills, {m.decode_ticks} decode ticks)")
-    if counts != want or min(counts["gs_rmsnorm"], counts["flash_attention"]) == 0:
+    if counts != want or min(counts[norm], counts["flash_attention"]) == 0:
         fail(f"launch counts {counts} != {want}")
     return res, counts
 
@@ -360,7 +383,7 @@ def serve(seed: int):
     serve_stats["bf16"] = {"ttft_ms_median": ttft16, "decode_tok_per_s": m16.decode_tok_per_s}
     del params, engine
     torch.cuda.empty_cache()
-    return counts, serve_stats
+    return counts, serve_stats, seq
 
 
 # -- phase 4 -------------------------------------------------------------------
@@ -512,19 +535,13 @@ def time_training_kernels():
     return rows
 
 
-def profile_serving(seed: int):
-    """Where a serving run's time goes: one request (prompt 97, 9 tokens)
-    through the f32 engine under the profiler — wall time, device busy
-    time, kernel launches, and the kernels that take the most device time."""
-    from repro_torch import configs
-    from repro_torch.models import api
-    from repro_torch.serving import Engine, EngineConfig, Request
+def profile_engine(engine, prompt) -> None:
+    """One request through ``engine`` under the profiler, for prefill alone
+    (gen 1) and prefill + 8 decode ticks (gen 9): wall time, device busy
+    time, device events, and the kernels that take the most device time."""
+    from repro_torch.serving import Request
 
-    cfg = configs.get_config("tinyllama-1.1b", dtype="float32")
-    params = api.init(cfg, seed=seed, device="cuda")
-    engine = Engine(cfg, params, EngineConfig(n_slots=N_SLOTS, s_max=max(PROMPTS) + GEN))
-    prompt = np.random.RandomState(seed).randint(0, cfg.vocab, (97,))
-    for gen in (1, 9):  # gen 1: prefill alone; gen 9: prefill + 8 decode ticks
+    for gen in (1, 9):
         req = Request(rid=0, prompt=prompt, max_new_tokens=gen)
         engine.run([req])  # warm
         wall, events = profiled(lambda: engine.run([req]))
@@ -541,6 +558,19 @@ def profile_serving(seed: int):
               f"({100 * busy / wall:.1f}%), {len(events)} device events")
         for name, ms in top:
             print(f"    {ms:8.2f} ms  {name[:110]}")
+
+
+def profile_serving(seed: int):
+    """Where a serving run's time goes: one request (prompt 97, 9 tokens)
+    through the f32 engine under the profiler."""
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.serving import Engine, EngineConfig
+
+    cfg = configs.get_config("tinyllama-1.1b", dtype="float32")
+    params = api.init(cfg, seed=seed, device="cuda")
+    engine = Engine(cfg, params, EngineConfig(n_slots=N_SLOTS, s_max=max(PROMPTS) + GEN))
+    profile_engine(engine, np.random.RandomState(seed).randint(0, cfg.vocab, (97,)))
     del params, engine
     torch.cuda.empty_cache()
 
@@ -717,9 +747,11 @@ def train_full(seed: int, dtype: str, steps: int, ckpt_every: int):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [stats["losses"][i] for i in range(steps)]
     n_leaves = len(tree_leaves(stats["state"].params))
-    want = {"gs_rmsnorm": (2 * cfg.n_layers + 1) * steps, "flash_attention": cfg.n_layers * steps,
-            "flash_attention_bwd_dq": cfg.n_layers * steps,
-            "flash_attention_bwd_dkv": cfg.n_layers * steps, "gs_adam": n_leaves * steps}
+    want = {name: 0 for name in counts}  # the int8 kernels: none
+    want.update({"gs_rmsnorm": (2 * cfg.n_layers + 1) * steps,
+                 "flash_attention": cfg.n_layers * steps,
+                 "flash_attention_bwd_dq": cfg.n_layers * steps,
+                 "flash_attention_bwd_dkv": cfg.n_layers * steps, "gs_adam": n_leaves * steps})
     med = float(np.median(step_ms[1:])) if len(step_ms) > 1 else step_ms[0]
     tokens = args.batch * args.seq
     print(f"  {dtype}: {cfg.n_layers} layers, {n_leaves} parameter leaves, {steps} steps in "
@@ -760,6 +792,276 @@ def train_full(seed: int, dtype: str, steps: int, ckpt_every: int):
     return result
 
 
+# -- phase 7 -------------------------------------------------------------------
+
+FIXED_MARGIN = 2.0  # benchmarks/bench_kernels.py: each int8 row's gate is 2 x its bound
+QUANT_BYTES_BUDGET = 0.55  # benchmarks/bench_serve.py: int8 params + cache vs bf16
+FIXED_KERNELS = ("gs_fixed_recip", "gs_fixed_softmax", "gs_fixed_rmsnorm")
+# gs_fixed_softmax vs its plain version, elementwise relative.  The two sum
+# the row in different orders, at most d·2^-24 relative apart (1.2e-5 at
+# d = 200), and share every other step; a neighbouring ROM word or a wrong
+# reciprocal moves a row by 2^-p (>= 2^-8) or more.  2^-12 lies between.
+SOFTMAX_PLAIN_RTOL = 2.0 ** -12
+
+
+def fixed_formats():
+    """benchmarks/bench_kernels.py's three formats: the int8 default
+    (frac 24, seed-only), a wide register, and a Mitchell first pass."""
+    from repro_torch.core import formats
+
+    return (("frac24", formats.format_for("int8")), ("frac30", formats.NumericFormat.fixed(30)),
+            ("mitchell", formats.NumericFormat.fixed(24, p=7, mitchell_iters=1)))
+
+
+def fixed_oracle_errors(x: np.ndarray, scale: float, gain: np.ndarray, outs):
+    """bench_kernels.py's errors against an f64 oracle: recip relative,
+    softmax absolute, rmsnorm over the largest element (eps 1e-6)."""
+    xf = x.astype(np.float64) * scale
+    e = np.exp(xf - xf.max(-1, keepdims=True))
+    rn = xf / np.sqrt(np.mean(xf * xf, axis=-1, keepdims=True) + 1e-6) * gain
+    recip, softmax, rmsnorm = (o.double().cpu().numpy() for o in outs)
+    return {"gs_fixed_recip": float(np.max(np.abs(recip - 1.0 / xf) * np.abs(xf))),
+            "gs_fixed_softmax": float(np.max(np.abs(softmax - e / e.sum(-1, keepdims=True)))),
+            "gs_fixed_rmsnorm": float(np.max(np.abs(rmsnorm - rn)) / np.max(np.abs(rn)))}
+
+
+def check_fixed_kernels():
+    """(a) each kernel against its plain version and the f64 oracle; returns
+    the worst |kernel - plain| of each.  recip and rmsnorm must be
+    bit-equal, softmax within SOFTMAX_PLAIN_RTOL of the plain value."""
+    from repro_torch.kernels import gs_fixed as fixed_kernel
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    worst = {name: 0.0 for name in FIXED_KERNELS}
+    shapes = (((256, 128), FIXED_KERNELS), ((37, 200), FIXED_KERNELS),
+              ((4, 2048), ("gs_fixed_rmsnorm",)), ((333, 2048), ("gs_fixed_rmsnorm",)))
+    for i, (shape, names) in enumerate(shapes):
+        rng = np.random.RandomState(7 + i)  # bench_kernels.py's case at i = 0
+        x_np = rng.randint(-127, 128, shape).astype(np.int8)
+        x_np[x_np == 0] = 1
+        gain_np = rng.randn(shape[-1]).astype(np.float32)
+        x, gain = torch.from_numpy(x_np).to(dev), torch.from_numpy(gain_np).to(dev)
+        with_zeros = x.clone()
+        with_zeros.view(-1)[::17] = 0  # recip's +inf lanes, bit-equal too
+        scale = torch.tensor(0.02, device=dev)
+        for fname, fmt in fixed_formats():
+            bound = FIXED_MARGIN * fmt.error_bound()
+            for variant in ("feedback", "pipelined"):
+                kw = dict(fmt.precision(), variant=variant)
+                rkw = dict(eps=1e-6, p=fmt.p, frac_bits=fmt.frac_bits, iters=fmt.iters)
+                got = {"gs_fixed_recip": fixed_kernel.gs_fixed_recip(x, scale, **kw),
+                       "gs_fixed_softmax": fixed_kernel.gs_fixed_softmax(x, scale, **kw),
+                       "gs_fixed_rmsnorm": fixed_kernel.gs_fixed_rmsnorm(x, scale, gain, **rkw)}
+                want = {"gs_fixed_recip": ref.fixed_recip(x, scale, **kw),
+                        "gs_fixed_softmax": ref.fixed_softmax(x, scale, **kw),
+                        "gs_fixed_rmsnorm": ref.fixed_rmsnorm(x, scale, gain, **rkw)}
+                oracle = fixed_oracle_errors(x_np, 0.02, gain_np, [got[n] for n in FIXED_KERNELS])
+                zeros_equal = torch.equal(fixed_kernel.gs_fixed_recip(with_zeros, scale, **kw),
+                                          ref.fixed_recip(with_zeros, scale, **kw))
+                errs = {n: (got[n] - want[n]).abs().max().item() for n in names}
+                rel = ""
+                if "gs_fixed_softmax" in names:
+                    sm_rel = ((got["gs_fixed_softmax"] - want["gs_fixed_softmax"]).abs()
+                              / want["gs_fixed_softmax"]).max().item()
+                    rel = f" (softmax relative {sm_rel:.3e}, limit {SOFTMAX_PLAIN_RTOL:.3e})"
+                    if not sm_rel <= SOFTMAX_PLAIN_RTOL:
+                        fail(f"gs_fixed_softmax {shape} {fname} {variant}: |kernel - plain| "
+                             f"/ plain {sm_rel:.3e} > {SOFTMAX_PLAIN_RTOL:.3e}")
+                print(f"  {shape} {fname} {variant}: max|kernel - plain| "
+                      + ", ".join(f"{n} {errs[n]:.3e}" for n in names) + rel
+                      + "; vs the f64 oracle "
+                      + ", ".join(f"{n} {oracle[n]:.3e}" for n in names)
+                      + f" (bound {bound:.3e})")
+                for n in names:
+                    worst[n] = max(worst[n], errs[n])
+                    if not oracle[n] <= bound:
+                        fail(f"{n} {shape} {fname} {variant}: oracle error {oracle[n]} > {bound}")
+                exact = [n for n in names if n != "gs_fixed_softmax"]
+                if any(errs[n] != 0.0 for n in exact) or (
+                        "gs_fixed_recip" in names and not zeros_equal):
+                    fail(f"{shape} {fname} {variant}: recip/rmsnorm not bit-equal to the "
+                         f"plain version: {errs}, zeros equal {zeros_equal}")
+    torch.cuda.synchronize()
+    return worst
+
+
+def int8_card_vs_cpu(seed: int, steps: int = 8, prompt_len: int = 97):
+    """(b) a 2-layer full-width int8 cut, teacher-forced: the same prompt and
+    the CPU's greedy tokens through both devices."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.layers.quant import quantize_params
+    from repro_torch.models import api
+    from repro_torch.serving import SlotCachePool
+    from repro_torch.serving.sampler import sample_greedy
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(configs.get_config("tinyllama-1.1b", dtype="float32"),
+                              n_layers=2, quant="int8")
+    host = api.init(cfg, seed=seed, device="cpu")
+    prompt = np.random.RandomState(seed).randint(0, cfg.vocab, (prompt_len,))
+    policy = cfg.policy()
+    logits, tokens = {}, []  # tokens: the CPU's greedy choices, fed to both
+    for dev in ("cpu", "cuda"):
+        params = quantize_params(tree_map(lambda t: t.to(dev), host))
+        prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+        lg, states, _ = prefill(params, {"tokens": torch.as_tensor(prompt[None], device=dev)})
+        cache = SlotCachePool.grow(cfg, states, prompt_len + steps, torch.float32, dev)
+        logits[dev] = [lg[0, -1].cpu()]
+        for i in range(steps):
+            if dev == "cpu":
+                tokens.append(int(sample_greedy(logits["cpu"][i][None], policy=policy)[0]))
+            lg, cache = decode(params, cache, torch.tensor([prompt_len + i], device=dev),
+                               {"token": torch.tensor([[tokens[i]]], device=dev)})
+            logits[dev].append(lg[0, -1].cpu())
+        del params, cache
+    bound = FIXED_MARGIN * policy.fmt.error_bound()
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(logits["cuda"], logits["cpu"])):
+        err = ((a - b).abs().max() / b.abs().max()).item()
+        worst = max(worst, err)
+        if not err <= bound:
+            fail(f"int8 card vs CPU, step {i}: logits differ by {err:.3e} of the largest "
+                 f"(bound {bound:.3e})")
+    print(f"  2-layer full-width int8, prompt {prompt_len}, prefill + {steps} teacher-forced "
+          f"decode steps: card vs CPU logits worst max|diff| / max|logit| {worst:.3e} "
+          f"(bound 2 x 2^-{policy.fmt.certified_bits()} = {bound:.3e})")
+    del host
+    return worst
+
+
+def serve_int8(seed: int, seq_f32):
+    """(c) the full-width int8 engine on phase 3's trace."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.layers.quant import tree_bytes
+    from repro_torch.models import api
+    from repro_torch.serving import FINISH_NUMERIC, Engine, EngineConfig, Request
+
+    cfg = configs.get_config("tinyllama-1.1b", dtype="float32")
+    cfg_q = dataclasses.replace(cfg, quant="int8")
+    s_max = max(PROMPTS) + GEN
+    params = api.init(cfg, seed=seed, device="cuda")
+    f32_bytes = tree_bytes(params)
+    reqs = trace(cfg.vocab, seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = Engine(cfg_q, params, EngineConfig(n_slots=N_SLOTS, s_max=s_max))
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    del params  # the engine holds only the int8 tree
+    torch.cuda.empty_cache()
+    q_bytes = tree_bytes(engine.params)
+    engine.run([Request(rid=0, prompt=reqs[0].prompt, max_new_tokens=2)])  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    res, counts = serve_run(engine, reqs, cfg.n_layers, fixed=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for r in reqs:
+        tok = res[r.rid].tokens
+        if (res[r.rid].finish_reason == FINISH_NUMERIC or len(tok) != GEN
+                or tok.min() < 0 or tok.max() >= cfg.vocab):
+            fail(f"int8 req {r.rid}: {res[r.rid].finish_reason} {tok.tolist()}")
+    again = engine.run(reqs)
+    if not all(np.array_equal(again[r.rid].tokens, res[r.rid].tokens) for r in reqs):
+        fail("int8 engine: a second run of the same trace gave other tokens")
+    m = res.metrics
+    cache_f32 = m.cache_bytes * 4  # the same pool with f32 K/V
+    bf16_baseline = (f32_bytes + cache_f32) / 2.0
+    ratio_params = q_bytes / f32_bytes
+    ratio_budget = (q_bytes + m.cache_bytes) / bf16_baseline
+    matched = 0
+    for r in reqs:
+        got, want = res[r.rid].tokens, seq_f32[r.rid]
+        n = min(len(got), len(want))
+        diff = np.nonzero(got[:n] != want[:n])[0]
+        matched += int(diff[0]) if diff.size else n
+    share = matched / sum(len(t) for t in seq_f32.values())
+    ttft = sorted(m.ttft_s.values())
+    print(f"  int8 Engine.run: {len(reqs)} requests, {GEN} valid tokens each, the same on a "
+          f"second run; quantized in {t_quant:.2f} s; resident params {q_bytes / 1e9:.3f} GB "
+          f"= {ratio_params:.4f} of the f32 tree's {f32_bytes / 1e9:.3f} GB (gate < 0.3); "
+          f"params + int8 KV cache {(q_bytes + m.cache_bytes) / 1e9:.3f} GB = "
+          f"{ratio_budget:.4f} of the analytic bf16 pair {bf16_baseline / 1e9:.3f} GB "
+          f"(gate <= {QUANT_BYTES_BUDGET})")
+    print(f"  int8 TTFT median {np.median(ttft) * 1e3:.1f} ms (max {ttft[-1] * 1e3:.1f} ms), "
+          f"decode {m.decode_tok_per_s:.1f} tok/s over {m.decode_ticks} ticks, peak device "
+          f"memory {peak_gb:.2f} GB; {share:.4f} of phase 3's f32 sequential tokens matched "
+          f"as a prefix ({matched} of {sum(len(t) for t in seq_f32.values())}; printed, not "
+          f"gated: with random weights the top-2 gaps lie far below int8's 2^-8)")
+    if not ratio_params < 0.3:
+        fail(f"int8 resident params {ratio_params:.4f} of f32, gate < 0.3")
+    if not ratio_budget <= QUANT_BYTES_BUDGET:
+        fail(f"int8 params + cache {ratio_budget:.4f} of the bf16 pair, gate "
+             f"<= {QUANT_BYTES_BUDGET}")
+    print("  where an int8 serving run's time goes (profiler, prompt 97):")
+    profile_engine(engine, np.random.RandomState(seed).randint(0, cfg.vocab, (97,)))
+    stats = {"ttft_ms_median": float(np.median(ttft) * 1e3),
+             "decode_tok_per_s": m.decode_tok_per_s, "peak_gb": peak_gb,
+             "param_bytes": q_bytes, "f32_param_bytes": f32_bytes,
+             "cache_bytes": m.cache_bytes, "params_ratio": ratio_params,
+             "bytes_vs_bf16": ratio_budget, "f32_prefix_share": share}
+    del engine
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+def time_fixed_kernels():
+    """(d) the three kernels at the path's shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import formats
+    from repro_torch.kernels import gs_fixed as fixed_kernel
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    kw = dict(formats.format_for("int8").precision(), variant="feedback")
+    rkw = dict(eps=1e-5, p=kw["p"], frac_bits=kw["frac_bits"], iters=kw["iters"])
+    scale = torch.tensor(0.02, device=dev)
+    rows = {}
+    cases = [("gs_fixed_rmsnorm", (N_SLOTS, 2048), "decode"),
+             ("gs_fixed_rmsnorm", (max(PROMPTS), 2048), "prefill"),
+             ("gs_fixed_rmsnorm", (256, 128), "bench"), ("gs_fixed_recip", (256, 128), "bench"),
+             ("gs_fixed_softmax", (256, 128), "bench")]
+    for name, shape, label in cases:
+        x = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+        gain = 1 + 0.1 * torch.randn(shape[-1], generator=g, device=dev)
+        n = x.numel()
+        if name == "gs_fixed_rmsnorm":
+            kern = lambda: fixed_kernel.gs_fixed_rmsnorm(x, scale, gain, **rkw)  # noqa: E731
+            plain = lambda: ref.fixed_rmsnorm(x, scale, gain, **rkw)  # noqa: E731
+            lib = lambda: F.rms_norm(x.float() * scale, (shape[-1],), weight=gain,  # noqa: E731
+                                     eps=1e-5)
+            nbytes, flops = n * (1 + 4) + 4 * shape[-1], 5 * n
+        elif name == "gs_fixed_recip":
+            kern = lambda: fixed_kernel.gs_fixed_recip(x, scale, **kw)  # noqa: E731
+            plain = lambda: ref.fixed_recip(x, scale, **kw)  # noqa: E731
+            lib = lambda: torch.reciprocal(x.float() * scale)  # noqa: E731
+            nbytes, flops = n * (1 + 4), 3 * n
+        else:
+            kern = lambda: fixed_kernel.gs_fixed_softmax(x, scale, **kw)  # noqa: E731
+            plain = lambda: ref.fixed_softmax(x, scale, **kw)  # noqa: E731
+            lib = lambda: torch.softmax(x.float() * scale, dim=-1)  # noqa: E731
+            nbytes, flops = n * (1 + 4), 6 * n
+        b, by = bound_ms(nbytes, flops, "float32")
+        rows[(name, label)] = dict(
+            ms=cuda_ms(kern, 200), plain_ms=cuda_ms(plain, 20), library_ms=cuda_ms(lib, 200),
+            bound_ms=b, bound_by=by, device_ms=[device_ms(f, 50) for f in (kern, plain, lib)],
+            shape=f"{shape} int8")
+    us = lambda v: "not measured" if v is None else f"{v * 1e3:.1f} us"  # noqa: E731
+    for (kname, label), r in rows.items():
+        print(f"  {kname} {label} {r['shape']}: per call (CUDA events, back to back) kernel "
+              f"{us(r['ms'])}, plain {us(r['plain_ms'])}, dequant + library {us(r['library_ms'])}; "
+              f"device time (profiler) kernel {us(r['device_ms'][0])}, plain "
+              f"{us(r['device_ms'][1])}, dequant + library {us(r['device_ms'][2])}; bound "
+              f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -798,7 +1100,7 @@ def main() -> None:
     worst.update(check_training_kernels())
 
     print("== 3. serve full-width tinyllama-1.1b")
-    counts, stats = serve(args.seed)
+    counts, stats, seq_f32 = serve(args.seed)
 
     print("== 4. timing at the main paths' shapes")
     timing = time_kernels()
@@ -812,26 +1114,45 @@ def main() -> None:
     train32 = train_full(args.seed, "float32", steps=10, ckpt_every=5)
     train16 = train_full(args.seed, "bfloat16", steps=3, ckpt_every=5)
 
+    print("== 7. serve full-width tinyllama-1.1b int8")
+    worst.update(check_fixed_kernels())
+    int8_card_vs_cpu(args.seed)
+    counts_int8, stats["int8"] = serve_int8(args.seed, seq_f32)
+    timing.update(time_fixed_kernels())
+
     picks = {"gs_rmsnorm": ("decode", "gs_rmsnorm.cu", "gs_rmsnorm.py:64"),
              "flash_attention": ("float32", "flash_attention.cu", "flash_attention.py:142"),
              "flash_attention_bwd_dq": ("float32", "flash_attention_bwd.cu",
                                         "flash_attention.py:311"),
              "flash_attention_bwd_dkv": ("float32", "flash_attention_bwd.cu",
                                          "flash_attention.py:338"),
-             "gs_adam": ("float32", "gs_adam.cu", "gs_adam.py:114")}
+             "gs_adam": ("float32", "gs_adam.cu", "gs_adam.py:114"),
+             "gs_fixed_recip": ("bench", "gs_fixed.cu", "gs_fixed.py:135"),
+             "gs_fixed_softmax": ("bench", "gs_fixed.cu", "gs_fixed.py:205"),
+             "gs_fixed_rmsnorm": ("decode", "gs_fixed.cu", "gs_fixed.py:282")}
     kernels = []
     for name, (label, source, replaces) in picks.items():
         r = timing[(name, label)]
-        serving = name in ("gs_rmsnorm", "flash_attention")
-        kernels.append({"name": name, "route": "cuda",
-                        "source": f"src/repro_torch/kernels/csrc/{source}",
-                        "replaces": f"src/repro/kernels/{replaces}",
-                        "launches": counts[name] if serving else train32["counts"][name],
-                        "max_abs_err": worst[name], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "device_ms": r["device_ms"][0], "shape": r["shape"],
-                        "launches_train_f32": train32["counts"][name]})
+        if name in FIXED_KERNELS:  # launches from phase 7c, the int8 path
+            launches = counts_int8[name]
+        elif name in ("gs_rmsnorm", "flash_attention"):
+            launches = counts[name]
+        else:
+            launches = train32["counts"][name]
+        row = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{source}",
+               "replaces": f"src/repro/kernels/{replaces}", "launches": launches,
+               "max_abs_err": worst[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+               "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+               "library_ms": r["library_ms"], "device_ms": r["device_ms"][0],
+               "shape": r["shape"], "launches_train_f32": train32["counts"][name],
+               "launches_int8_serve": counts_int8[name]}
+        if name in ("gs_fixed_recip", "gs_fixed_softmax"):
+            row["note"] = ("not on a model path of the reference either: only 7a and 7d "
+                           "launch it; library_ms is a dequantize plus one call")
+        elif name == "gs_fixed_rmsnorm":
+            row["note"] = "library_ms is a dequantize plus F.rms_norm"
+        kernels.append(row)
     train_stats = {k: {key: v[key] for key in ("median_step_ms", "tokens_per_s", "peak_gb",
                                                 "losses")}
                    for k, v in (("float32", train32), ("bfloat16", train16))}

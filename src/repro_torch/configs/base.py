@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.formats import format_for
 from repro_torch.core.goldschmidt import target_bits_for
 from repro_torch.core.policy import NumericsPolicy
 
@@ -36,7 +37,7 @@ class ArchConfig:
     policy_mode: str = "gs_feedback"  # exact | gs_pipelined | gs_feedback
     gs_p_bits: Optional[int] = None
     gs_iters: Optional[int] = None
-    quant: str = "none"  # int8 is not ported yet (ROADMAP A9)
+    quant: str = "none"  # none | int8: int8 weights and KV, fixed-point datapath
     max_seq: int = 4096
 
     def __post_init__(self):
@@ -53,14 +54,16 @@ class ArchConfig:
         return getattr(torch, self.dtype)
 
     def policy(self) -> NumericsPolicy:
-        """Model-stack policy: the accuracy budget is the COMPUTE dtype."""
+        """Model-stack policy: the accuracy budget is the COMPUTE dtype;
+        ``quant="int8"`` adds the fixed-point format of the int8 route."""
+        fmt = None
         if self.quant != "none":
-            raise NotImplementedError(
-                f"quant={self.quant!r}: the fixed-point datapath is not ported "
-                "yet (ROADMAP A9)")
+            if self.quant != "int8":
+                raise ValueError(f"unknown quant mode {self.quant!r}")
+            fmt = format_for("int8")
         return NumericsPolicy(
             mode=self.policy_mode, p_bits=self.gs_p_bits, iters=self.gs_iters,
-            target_bits=target_bits_for(self.dtype))
+            target_bits=target_bits_for(self.dtype), fmt=fmt)
 
     def optimizer_policy(self) -> NumericsPolicy:
         """Optimizer policy: the accuracy budget is the PARAM/state dtype, so

@@ -12,10 +12,14 @@ The Goldschmidt ops carry the reference's VJPs
 differentiate through them.
 
 ``p_bits``/``iters`` left ``None`` derive per call from ``target_bits`` (set
-by the config to its compute dtype) or else the operand dtype.  The
-reference's fixed-point route (its ``fmt`` field, ``quant="int8"``) is not
-ported yet: ``ArchConfig.policy`` raises ``NotImplementedError`` for it
-(ROADMAP A9).
+by the config to its compute dtype) or else the operand dtype.
+
+``fmt`` carries a :class:`~repro_torch.core.formats.NumericFormat`; with a
+fixed-point format (``ArchConfig.quant="int8"``) the four primitives run
+the integer datapath of :mod:`repro_torch.core.fixed_point_torch` instead of
+the float Goldschmidt ops, so every division site of the int8 serving path
+runs through the narrow hardware the paper builds.  That route is a
+serving datapath and carries no VJP.
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import fixed_point_torch as fpt
 from repro_torch.core import goldschmidt as gs
+from repro_torch.core.formats import NumericFormat
 
 __all__ = ["NumericsPolicy", "EXACT", "GS_FEEDBACK", "GS_PIPELINED"]
 
@@ -38,6 +44,7 @@ class NumericsPolicy:
     p_bits: Optional[int] = None
     iters: Optional[int] = None
     target_bits: Optional[int] = None
+    fmt: Optional[NumericFormat] = None  # None -> float route; fixed -> integer
 
     def __post_init__(self):
         if self.mode not in _MODES:
@@ -47,28 +54,50 @@ class NumericsPolicy:
     def variant(self) -> str:
         return "pipelined" if self.mode == "gs_pipelined" else "feedback"
 
+    @property
+    def is_fixed(self) -> bool:
+        """True when the Goldschmidt ops run the fixed-point datapath."""
+        return (self.fmt is not None and self.fmt.kind == "fixed"
+                and self.mode != "exact")
+
     def _gs_kw(self) -> dict:
         return {"p": self.p_bits, "iters": self.iters, "variant": self.variant,
                 "target_bits": self.target_bits}
 
+    def _fixed_kw(self) -> dict:
+        return {"frac_bits": self.fmt.frac_bits, "p": self.fmt.p,
+                "iters": self.fmt.iters}
+
     def reciprocal(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "exact":
             return 1.0 / x
+        if self.is_fixed:
+            return fpt.recip_f32(x, variant=self.variant,
+                                 mitchell_iters=self.fmt.mitchell_iters,
+                                 **self._fixed_kw())
         return gs.gs_reciprocal(x, **self._gs_kw())
 
     def divide(self, n: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
         if self.mode == "exact":
             return n / d
+        if self.is_fixed:
+            return fpt.divide_f32(n, d, variant=self.variant,
+                                  mitchell_iters=self.fmt.mitchell_iters,
+                                  **self._fixed_kw())
         return gs.gs_divide(n, d, **self._gs_kw())
 
     def rsqrt(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "exact":
             return torch.rsqrt(x)
+        if self.is_fixed:
+            return fpt.rsqrt_f32(x, **self._fixed_kw())
         return gs.gs_rsqrt(x, **self._gs_kw())
 
     def sqrt(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "exact":
             return torch.sqrt(x)
+        if self.is_fixed:
+            return fpt.sqrt_f32(x, **self._fixed_kw())
         return gs.gs_sqrt(x, **self._gs_kw())
 
     def kernel_precision(self, dtype) -> dict:

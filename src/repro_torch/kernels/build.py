@@ -45,6 +45,15 @@ _SIGNATURES = {
     # beta1, 1-beta1, beta2, 1-beta2, eps, weight_decay, p, iters, pipelined,
     # rsqrt_scale, stream
     "gs_adam_launch": [_P] * 10 + [_L] + [_F] * 6 + [_I] * 3 + [_F, _P],
+    # x, inv_scale, words, out, n, frac_bits, p, iters, pipelined,
+    # mitchell_iters, stream
+    "gs_fixed_recip_launch": [_P] * 4 + [_L] + [_I] * 5 + [_P],
+    # x, scale, words, out, rows, d, frac_bits, p, iters, pipelined,
+    # mitchell_iters, stream
+    "gs_fixed_softmax_launch": [_P] * 4 + [_I] * 7 + [_P],
+    # x, scale, gain, words, out, rows, d, inv_d, eps, frac_bits, p, iters,
+    # stream
+    "gs_fixed_rmsnorm_launch": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_I] * 3 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

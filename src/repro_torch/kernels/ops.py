@@ -19,6 +19,13 @@ saves its residuals (the rsqrt column; the row statistics m, l) and the
 backward is the reference's rule — a torch expression for the norm, the two
 backward kernels for attention.  :func:`launch_counts` reads each kernel's
 launch counter.
+
+The fixed-point ops (``gs_fixed_recip``, ``gs_fixed_softmax``,
+``gs_fixed_rmsnorm``) take int8 operands and a per-tensor scale (a Python
+float or a one-element f32 tensor) and take their settings from a
+:class:`~repro_torch.core.formats.NumericFormat`'s ``precision()``; their
+defaults are the int8 format's (frac_bits 24, p 8, no passes).  They have
+no gradient: the int8 route serves.
 """
 
 from __future__ import annotations
@@ -32,10 +39,12 @@ from repro_torch.core.goldschmidt import resolve_precision
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import gs_adam as _adam
+from repro_torch.kernels import gs_fixed as _fixed
 from repro_torch.kernels import gs_rmsnorm as _rmsnorm
 from repro_torch.kernels import ref
 
 __all__ = ["gs_rmsnorm", "flash_attention", "gs_adam_update", "adam_scalars",
+           "gs_fixed_recip", "gs_fixed_softmax", "gs_fixed_rmsnorm",
            "launch_counts", "reset_launch_counts"]
 
 # kernel name -> (wrapper module, its counter attribute)
@@ -45,6 +54,9 @@ _COUNTERS = {
     "flash_attention_bwd_dq": (_flash_bwd, "launches_dq"),
     "flash_attention_bwd_dkv": (_flash_bwd, "launches_dkv"),
     "gs_adam": (_adam, "launches"),
+    "gs_fixed_recip": (_fixed, "launches_recip"),
+    "gs_fixed_softmax": (_fixed, "launches_softmax"),
+    "gs_fixed_rmsnorm": (_fixed, "launches_rmsnorm"),
 }
 
 
@@ -164,3 +176,36 @@ def gs_adam_update(param: torch.Tensor, grad: torch.Tensor, m: torch.Tensor,
     if _on_cpu(param, "gs_adam"):
         return ref.adam_update(param, grad, m, v, bc, **kw)
     return _adam.gs_adam_update(param, grad, m, v, bc, **kw)
+
+
+def gs_fixed_recip(x: torch.Tensor, scale, *, p: int, frac_bits: int, iters: int,
+                   variant: str = "feedback", mitchell_iters: int = 0) -> torch.Tensor:
+    """1/(x·scale) elementwise for int8 ``x``; f32 out."""
+    kw = dict(p=p, frac_bits=frac_bits, iters=iters, variant=variant,
+              mitchell_iters=mitchell_iters)
+    if _on_cpu(x, "gs_fixed_recip"):
+        return ref.fixed_recip(x, scale, **kw)
+    return _fixed.gs_fixed_recip(x.contiguous(), scale, **kw)
+
+
+def gs_fixed_softmax(x: torch.Tensor, scale, *, p: int, frac_bits: int, iters: int,
+                     variant: str = "feedback", mitchell_iters: int = 0) -> torch.Tensor:
+    """softmax(x·scale) over the last axis of int8 ``x``; f32 out."""
+    kw = dict(p=p, frac_bits=frac_bits, iters=iters, variant=variant,
+              mitchell_iters=mitchell_iters)
+    if _on_cpu(x, "gs_fixed_softmax"):
+        return ref.fixed_softmax(x, scale, **kw)
+    return _fixed.gs_fixed_softmax(x.contiguous(), scale, **kw)
+
+
+def gs_fixed_rmsnorm(x: torch.Tensor, scale, gain: torch.Tensor, *, eps: float, p: int,
+                     frac_bits: int, iters: int, variant: str = "feedback",
+                     mitchell_iters: int = 0) -> torch.Tensor:
+    """RMSNorm of (x·scale) over the last axis of int8 ``x``; f32 out.
+    ``variant`` and ``mitchell_iters`` are accepted and dropped, as the
+    reference drops them: the rsqrt core is one loop of exact multiplies."""
+    del variant, mitchell_iters
+    kw = dict(eps=eps, p=p, frac_bits=frac_bits, iters=iters)
+    if _on_cpu(x, "gs_fixed_rmsnorm"):
+        return ref.fixed_rmsnorm(x, scale, gain, **kw)
+    return _fixed.gs_fixed_rmsnorm(x.contiguous(), scale, gain, **kw)

@@ -14,8 +14,11 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
+from repro_torch.core.fixed_point_torch import (FixedPointTorch, _mant_to_reg, _peel,
+                                               _reg_to_f32, msb32, rom_words)
 from repro_torch.core.goldschmidt import rom
 from repro_torch.kernels import common
 
@@ -126,3 +129,69 @@ def adam_update(param: torch.Tensor, grad: torch.Tensor, m: torch.Tensor,
     update = (m_new * bc1) * inv
     p_new = w - lr * (update + weight_decay * w)
     return p_new.to(param.dtype), m_new, v_new
+
+
+# -- the fixed-point kernels over int8 operands ---------------------------------
+
+
+def _scale(scale, device) -> torch.Tensor:
+    return torch.as_tensor(scale, dtype=torch.float32, device=device).reshape(())
+
+
+def fixed_recip(x: torch.Tensor, scale, *, p: int, frac_bits: int, iters: int,
+                variant: str, mitchell_iters: int) -> torch.Tensor:
+    """``1/(x·scale)`` for int8 ``x``, elementwise, f32: ``|x|`` ∈ [1, 127]
+    normalized by ``msb32``, the fixed divide with n = 1, then
+    ``(q · 2^-e) · (1/scale)``; the sign restored, ``x == 0`` gives +inf."""
+    xi = x.to(torch.int64)
+    a = xi.abs().clamp_min(1)
+    e = msb32(a)
+    one = 1 << frac_bits
+    m_reg = a << (frac_bits - e)
+    idx = ((m_reg - one) >> (frac_bits - p)).clamp(0, (1 << p) - 1)
+    dp = FixedPointTorch(p=p, frac_bits=frac_bits, mitchell_iters=mitchell_iters)
+    q, _ = dp.divide(torch.full_like(m_reg, one), m_reg, iters, variant,
+                     k1=rom_words("recip", p, frac_bits, str(x.device))[idx])
+    inv_scale = 1.0 / _scale(scale, x.device)
+    mag = _reg_to_f32(q, frac_bits) * common.pow2_from_biased(127 - e) * inv_scale
+    out = torch.where(xi < 0, -mag, mag)
+    return torch.where(xi == 0, torch.full_like(out, float("inf")), out)
+
+
+def fixed_softmax(x: torch.Tensor, scale, *, p: int, frac_bits: int, iters: int,
+                  variant: str, mitchell_iters: int) -> torch.Tensor:
+    """``softmax(x·scale)`` over the last axis of int8 ``x``, f32: f32 max,
+    exp and sum; the sum's mantissa peeled into a register, its fixed
+    reciprocal scales the row."""
+    v = x.to(torch.float32) * _scale(scale, x.device)
+    e = torch.exp(v - torch.amax(v, dim=-1, keepdim=True))
+    s = torch.sum(e, dim=-1, keepdim=True)  # ∈ [1, d]: a positive normal
+    eb, mant, _ = _peel(s)
+    idx = ((mant & 0x7FFFFF) >> (23 - p)).clamp(0, (1 << p) - 1)
+    dp = FixedPointTorch(p=p, frac_bits=frac_bits, mitchell_iters=mitchell_iters)
+    q, _ = dp.divide(torch.full_like(mant, 1 << frac_bits), _mant_to_reg(mant, frac_bits),
+                     iters, variant, k1=rom_words("recip", p, frac_bits, str(x.device))[idx])
+    return e * (_reg_to_f32(q, frac_bits) * common.pow2_from_biased(254 - eb))
+
+
+def fixed_rmsnorm(x: torch.Tensor, scale, gain: torch.Tensor, *, eps: float, p: int,
+                  frac_bits: int, iters: int) -> torch.Tensor:
+    """RMSNorm of ``x·scale`` over the last axis of int8 ``x``, times
+    ``gain``, f32.  The sum of squares is exact in integers; then, in f32,
+    ``ms = ss·scale²·(1/d) + eps``, the fixed ``rsqrt_reg`` seeded from the
+    rsqrt ROM at ``t // 3``, and ``((x·scale)·inv)·gain``."""
+    d = x.shape[-1]
+    xi = x.to(torch.int64)
+    sc = _scale(scale, x.device)
+    ss = torch.sum(xi * xi, dim=-1, keepdim=True).to(torch.float32)
+    ms = ss * (sc * sc) * np.float32(1.0 / d) + np.float32(eps)
+    eb, mant, _ = _peel(ms)
+    ebits = eb - 127
+    half_e = ebits >> 1
+    m_reg = _mant_to_reg(mant, frac_bits) << (ebits - 2 * half_e)
+    t = (m_reg - (1 << frac_bits)) >> (frac_bits - p)
+    idx = (t // 3).clamp(0, (1 << p) - 1)
+    h2 = FixedPointTorch(p=p, frac_bits=frac_bits).rsqrt_reg(
+        m_reg, iters, y0=rom_words("rsqrt", p, frac_bits, str(x.device))[idx])
+    inv = _reg_to_f32(h2, frac_bits) * common.pow2_from_biased(127 - half_e)
+    return x.to(torch.float32) * sc * inv * gain.to(torch.float32)

@@ -8,6 +8,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --smoke --trace 12 --rate 40 --batch 4 --dtype float32 --device cpu
 
+  # int8 weights and KV through the fixed-point datapath, on the card:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+      --dtype float32 --quant int8 --batch 4 --prompt-len 97 --gen 32
+
 Parameters are random, drawn from ``--seed``.  Requests are greedy.
 """
 
@@ -20,6 +24,7 @@ import time
 import numpy as np
 
 from repro_torch import configs
+from repro_torch.layers.quant import tree_bytes
 from repro_torch.models import api
 from repro_torch.serving import Engine, EngineConfig, Request
 
@@ -53,7 +58,7 @@ def report(res) -> None:
           f"{m.prefill_tokens} prompt tokens in {m.prefill_time_s * 1e3:.1f} ms; "
           f"decode {m.decode_tokens} tokens in {m.decode_ticks} ticks / "
           f"{m.decode_time_s * 1e3:.1f} ms ({m.decode_tok_per_s:.1f} tok/s, "
-          f"occupancy {m.occupancy:.2f})")
+          f"occupancy {m.occupancy:.2f}); KV cache {m.cache_bytes / 1e6:.1f} MB")
     if ttft.size:
         print(f"  TTFT ms: min {ttft.min():.1f} / p50 {np.median(ttft):.1f} / "
               f"max {ttft.max():.1f}; failed {m.failed}")
@@ -79,12 +84,17 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dtype", default=None, choices=("float32", "bfloat16"),
                     help="activation dtype (default: the config's)")
+    ap.add_argument("--quant", choices=("none", "int8"), default="none",
+                    help="int8: per-tensor int8 weights and an int8 KV cache on "
+                         "the static KV scale; every division site runs the "
+                         "fixed-point Goldschmidt datapath")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
 
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
+    cfg = dataclasses.replace(cfg, quant=args.quant)
     s_max = args.prompt_len + args.gen
     if s_max > cfg.max_seq:
         raise SystemExit(f"--prompt-len + --gen = {s_max} exceeds max_seq {cfg.max_seq}")
@@ -97,7 +107,8 @@ def main() -> None:
     # warm-up: builds the kernels and the libraries' handles before timing
     engine.run([Request(rid=0, prompt=reqs[0].prompt, max_new_tokens=2)])
     print(f"set-up {time.perf_counter() - t0:.1f} s ({cfg.name}, {cfg.dtype}, "
-          f"{args.device})")
+          f"quant {cfg.quant}, {args.device}); resident params "
+          f"{tree_bytes(engine.params) / 1e6:.1f} MB")
     report(engine.run(reqs))
 
 

@@ -5,7 +5,9 @@ PyTorch runs eagerly, so there is no jit and no mesh here.  A serving step
 is the model call under ``torch.no_grad``; a train step takes the loss and
 its gradients with autograd (through the kernels' backward rules), then one
 fused AdamW step, and returns new parameters and state as the reference's
-does.
+does.  The serving steps take a float or an int8-quantized parameter tree;
+an int8 tree stays int8 on the card and each weight is dequantized as the
+model reads it (:func:`~repro_torch.layers.quant.maybe_dequantize`).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.layers.quant import maybe_dequantize
 from repro_torch.models import api
 from repro_torch.optim import adamw_update, cosine, wsd
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -65,7 +68,7 @@ def make_train_step(cfg: ArchConfig, hp: TrainHParams) -> Callable:
 def make_prefill_step(cfg: ArchConfig) -> Callable:
     @torch.no_grad()
     def prefill_step(params, batch):
-        return api.prefill(cfg, params, batch)
+        return api.prefill(cfg, maybe_dequantize(params), batch)
 
     return prefill_step
 
@@ -73,6 +76,6 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
 def make_decode_step(cfg: ArchConfig) -> Callable:
     @torch.no_grad()
     def decode_step(params, states, cur_index, batch):
-        return api.decode_step(cfg, params, states, cur_index, batch)
+        return api.decode_step(cfg, maybe_dequantize(params), states, cur_index, batch)
 
     return decode_step

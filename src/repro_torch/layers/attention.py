@@ -4,7 +4,9 @@
 Layouts follow the reference: ``(b, s, H, hd)`` at this layer's functions,
 ``(B, H, S, D)`` at the kernel's.  Prefill attention runs the flash kernel
 front-end; decode attention is tensor ops around ``policy.softmax`` over
-the masked cache.
+the masked cache.  An int8 cache (the quantized serving path) is written
+through ``kv_cast``, which quantizes on the static KV scale, and read
+through ``kv_dequantize``; a float cache just casts.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.formats import kv_cast, kv_dequantize
 from repro_torch.core.policy import NumericsPolicy
 from repro_torch.kernels import ops
 from repro_torch.kernels.common import NEG_INF
@@ -88,11 +91,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(hd)
     qg = q.reshape(b, kh, h // kh, hd).to(torch.float32)
-    logits = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.to(torch.float32)) * sm_scale
+    logits = torch.einsum("bkgd,btkd->bkgt", qg, kv_dequantize(k_cache)) * sm_scale
     valid = torch.arange(S, device=q.device)[None, :] <= cur_index[:, None]  # (b, S)
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
     probs = policy.softmax(logits, dim=-1)
-    v = torch.where(valid[:, :, None, None], v_cache.to(torch.float32), 0.0)
+    v = torch.where(valid[:, :, None, None], kv_dequantize(v_cache), 0.0)
     o = torch.einsum("bkgt,btkd->bkgd", probs, v)
     return o.reshape(b, 1, h, hd).to(q.dtype)
 
@@ -106,6 +109,6 @@ def cache_update(k_cache: torch.Tensor, v_cache: torch.Tensor,
     donated buffer) and returns them.
     """
     rows = torch.arange(k_cache.shape[0], device=k_cache.device)
-    k_cache[rows, cur_index] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[rows, cur_index] = v_new[:, 0].to(v_cache.dtype)
+    k_cache[rows, cur_index] = kv_cast(k_new[:, 0], k_cache.dtype)
+    v_cache[rows, cur_index] = kv_cast(v_new[:, 0], v_cache.dtype)
     return k_cache, v_cache

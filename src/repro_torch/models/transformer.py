@@ -103,8 +103,10 @@ def decode_step(cfg: ArchConfig, params: Params, states: States,
 
 def make_cache(cfg: ArchConfig, batch: int, s_max: int, dtype,
                device) -> States:
-    """Zeroed decode state: one (batch, s_max, KH, hd) K and V per layer."""
+    """Zeroed decode state: one (batch, s_max, KH, hd) K and V per layer, in
+    int8 under ``cfg.quant="int8"`` (the static-scale KV cache), else ``dtype``."""
     shape = (batch, s_max, cfg.n_kv_heads, cfg.head_dim_)
-    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    dt = torch.int8 if cfg.quant != "none" else dtype
+    return [{"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
             for _ in range(cfg.n_layers)]

@@ -6,7 +6,8 @@
 the counterpart of the reference's donated graft — and the decode tick
 updates the rows in place too.  Recycling leaks nothing: K/V rows past a
 request's ``cur_index`` are masked in decode attention until the decode
-loop overwrites them.
+loop overwrites them.  Under ``cfg.quant="int8"`` the K/V rows are int8 on
+the static KV scale, and ``write`` quantizes into them through ``kv_cast``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Deque
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.formats import kv_cast
 from repro_torch.models import api
 
 
@@ -52,7 +54,11 @@ class SlotCachePool:
         for dst, src in zip(self.cache, states):
             for name in ("k", "v"):
                 s = src[name].shape[1]
-                dst[name][slot, :s].copy_(src[name][0])
+                dst[name][slot, :s] = kv_cast(src[name][0], dst[name].dtype)
+
+    @property
+    def cache_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for st in self.cache for t in st.values())
 
     @staticmethod
     def grow(cfg: ArchConfig, states, s_max: int, dtype, device):

@@ -17,6 +17,14 @@
   its own, and masked cache rows are selected away, never multiplied).
   Non-finite prefill logits fail the request before it takes a slot.
 
+* **int8** (``cfg.quant="int8"``): the engine quantizes the parameters at
+  construction (per-tensor int8, dequantized leaf by leaf inside the
+  steps) and keeps the slot pool's K/V in int8 on the static KV scale;
+  every division site runs the fixed-point datapath.  The norms' int8
+  activations take one scale over the whole tick batch, idle slots
+  included, so an idle slot's operands (``cur = 0``, ``last_tok = 0``) are
+  part of the computation, as in the reference.
+
 Not ported yet (ROADMAP A8, A10): the paged pool and prefix reuse,
 stochastic and top-k sampling, deadlines, cancellation, retries,
 preemption, fault injection, tracing, the static scheduler and the mesh.
@@ -35,6 +43,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.layers.quant import is_quantized, quantize_params
 from repro_torch.serving.cache import SlotCachePool
 from repro_torch.serving.requests import (FINISH_LENGTH, FINISH_NUMERIC,
                                           FINISH_STOP, FINISHED, RUNNING,
@@ -63,6 +72,7 @@ class ServeMetrics:
     peak_active: int = 0
     makespan_s: float = 0.0
     failed: int = 0           # numeric_error finishes
+    cache_bytes: int = 0      # the slot pool's K/V tensors
     ttft_s: Dict[int, float] = dataclasses.field(default_factory=dict)
     itl_samples: List[float] = dataclasses.field(default_factory=list)
 
@@ -91,7 +101,7 @@ class ServeResult:
 
 
 def _check_params(params, device: torch.device) -> None:
-    where = params["embed"].device
+    where = (params["q"] if is_quantized(params) else params)["embed"].device
     if where.type != device.type:
         raise ValueError(f"params live on {where}, the engine runs on {device}")
 
@@ -109,7 +119,8 @@ def _prompt_tensor(req: Request, device) -> torch.Tensor:
 
 class Engine:
     """Continuous-batching engine over one model and one slot pool, on
-    ``device`` (``cuda`` unless the caller asks for the CPU)."""
+    ``device`` (``cuda`` unless the caller asks for the CPU).  Under
+    ``cfg.quant="int8"`` ``self.params`` is the quantized tree."""
 
     def __init__(self, cfg: ArchConfig, params,
                  engine_cfg: Optional[EngineConfig] = None, *,
@@ -117,10 +128,10 @@ class Engine:
         self.device = resolve_device(device)
         _check_params(params, self.device)
         self.cfg = cfg
-        self.params = params
+        self._policy = cfg.policy()  # raises for an unknown quant mode
+        self.params = quantize_params(params) if cfg.quant != "none" else params
         self.ecfg = engine_cfg or EngineConfig()
         self.s_max = self.ecfg.s_max or cfg.max_seq
-        self._policy = cfg.policy()
         self._prefill = make_prefill_step(cfg)
         self._decode = make_decode_step(cfg)
 
@@ -184,7 +195,8 @@ class Engine:
             self._validate(req)
         n = self.ecfg.n_slots
         pool = SlotCachePool(self.cfg, n, self.s_max, self.cfg.compute_dtype, self.device)
-        metrics = ServeMetrics(n_requests=len(requests), n_slots=n)
+        metrics = ServeMetrics(n_requests=len(requests), n_slots=n,
+                               cache_bytes=pool.cache_bytes)
         t_start = time.perf_counter()
         clock = lambda: time.perf_counter() - t_start  # noqa: E731
 
@@ -260,7 +272,9 @@ def generate_sequential(cfg: ArchConfig, params, request: Request, *,
                         device=DEFAULT_DEVICE) -> GenerationResult:
     """Single-request reference: prefill, then a batch-1 decode loop, with
     the same model entry points and sampler as the engine, so an
-    engine-vs-sequential mismatch isolates the serving machinery."""
+    engine-vs-sequential mismatch isolates the serving machinery.  Under
+    ``cfg.quant="int8"`` its KV cache is int8, as the engine's; pass
+    ``quantize_params(params)`` for the engine's int8 weights."""
     dev = resolve_device(device)
     _check_params(params, dev)
     _check_greedy(request)

@@ -226,5 +226,10 @@ def test_policy_matches_reference():
 
 
 def test_int8_format_not_ported():
-    with pytest.raises(NotImplementedError, match="A9"):
-        tinyllama_1_1b.smoke(quant="int8").policy()
+    """``quant="int8"`` gives the fixed-point policy; an unknown mode raises
+    ``ValueError``, as in the reference (``tests/test_quant.py``)."""
+    pol = tinyllama_1_1b.smoke(quant="int8").policy()
+    assert pol.is_fixed and pol.fmt.kind == "fixed" and pol.fmt.frac_bits == 24
+    assert not tinyllama_1_1b.smoke().policy().is_fixed
+    with pytest.raises(ValueError, match="quant"):
+        tinyllama_1_1b.smoke(quant="int3").policy()

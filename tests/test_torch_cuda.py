@@ -12,9 +12,11 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.core import formats  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_kernel  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as flash_bwd_kernel  # noqa: E402
 from repro_torch.kernels import gs_adam as adam_kernel  # noqa: E402
+from repro_torch.kernels import gs_fixed as fixed_kernel  # noqa: E402
 from repro_torch.kernels import gs_rmsnorm as rms_kernel  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch.steps import TrainHParams, lr_at, make_train_step  # noqa: E402
@@ -79,7 +81,8 @@ def test_smoke_engine_runs_the_kernels(cuda_device):
     assert ops.launch_counts() == {
         "gs_rmsnorm": (2 * cfg.n_layers + 1) * (m.first_tokens + m.decode_ticks),
         "flash_attention": cfg.n_layers * m.first_tokens,
-        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0, "gs_adam": 0}
+        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0, "gs_adam": 0,
+        "gs_fixed_recip": 0, "gs_fixed_softmax": 0, "gs_fixed_rmsnorm": 0}
     for req in reqs:
         np.testing.assert_array_equal(res[req.rid].tokens,
                                       generate_sequential(cfg, params, req).tokens)
@@ -157,7 +160,8 @@ def test_smoke_train_step_on_the_card_matches_the_cpu(cuda_device):
     n_leaves = len(tree_leaves(p_gpu))
     assert counts == {"gs_rmsnorm": 2 * cfg.n_layers + 1, "flash_attention": cfg.n_layers,
                       "flash_attention_bwd_dq": cfg.n_layers,
-                      "flash_attention_bwd_dkv": cfg.n_layers, "gs_adam": n_leaves}
+                      "flash_attention_bwd_dkv": cfg.n_layers, "gs_adam": n_leaves,
+                      "gs_fixed_recip": 0, "gs_fixed_softmax": 0, "gs_fixed_rmsnorm": 0}
     _, (p_cpu, opt_cpu, met_cpu) = _smoke_step("cpu")
     assert abs(met_gpu["loss"].item() - met_cpu["loss"].item()) <= 1e-4 * met_cpu["loss"].item()
     # m and v hold the clipped gradients after one step from zeros
@@ -202,3 +206,59 @@ def test_adamw_update_on_the_same_gradients_matches_the_cpu(cuda_device):
         out[dev] = tree_leaves((new_p, new_o["m"], new_o["v"]))
     for a, b in zip(out[cuda_device], out["cpu"]):
         assert _err(a.cpu(), b) <= 2.0**-18
+
+
+# benchmarks/bench_kernels.py's three fixed formats
+FIXED_FORMATS = (formats.format_for("int8"), formats.NumericFormat.fixed(30),
+                 formats.NumericFormat.fixed(24, p=7, mitchell_iters=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["feedback", "pipelined"])
+def test_fixed_kernels_match_plain_versions(cuda_device, variant):
+    """recip and rmsnorm bit-equal to their plain versions; softmax (the row
+    sum's order is the kernel's own) within 2^-12 of the plain value,
+    elementwise: above the sum-order spread (d·2^-24, 1.2e-4 at d = 2048),
+    below a neighbouring ROM word (2^-p >= 2^-8)."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    for shape in ((256, 128), (4, 2048), (37, 200)):
+        x = torch.randint(-127, 128, shape, generator=g, device=cuda_device, dtype=torch.int8)
+        x.view(-1)[::17] = 0
+        gain = 1 + 0.1 * torch.randn(shape[-1], generator=g, device=cuda_device)
+        scale = torch.tensor(0.02, device=cuda_device)
+        for fmt in FIXED_FORMATS:
+            kw = dict(fmt.precision(), variant=variant)
+            assert torch.equal(fixed_kernel.gs_fixed_recip(x, scale, **kw),
+                               ref.fixed_recip(x, scale, **kw))
+            got = fixed_kernel.gs_fixed_softmax(x, scale, **kw)
+            want = ref.fixed_softmax(x, scale, **kw)
+            assert ((got - want).abs() <= 2.0 ** -12 * want).all()
+            rkw = dict(eps=1e-5, p=fmt.p, frac_bits=fmt.frac_bits, iters=fmt.iters)
+            assert torch.equal(fixed_kernel.gs_fixed_rmsnorm(x, scale, gain, **rkw),
+                               ref.fixed_rmsnorm(x, scale, gain, **rkw))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_smoke_int8_engine_runs_the_fixed_kernel(cuda_device):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_smoke("tinyllama-1.1b", dtype="float32", quant="int8")
+    params = api.init(cfg, seed=0, device=cuda_device)
+    r = np.random.RandomState(0)
+    reqs = [Request(rid=i, prompt=r.randint(0, cfg.vocab, (s,)), max_new_tokens=g)
+            for i, (s, g) in enumerate([(6, 5), (9, 8), (13, 4)])]
+    engine = Engine(cfg, params, EngineConfig(n_slots=2))
+    assert engine.params["q"]["embed"].dtype == torch.int8
+    ops.reset_launch_counts()
+    res = engine.run(reqs)
+    m = res.metrics
+    assert ops.launch_counts() == {
+        "gs_rmsnorm": 0, "flash_attention": cfg.n_layers * m.first_tokens,
+        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0, "gs_adam": 0,
+        "gs_fixed_recip": 0, "gs_fixed_softmax": 0,
+        "gs_fixed_rmsnorm": (2 * cfg.n_layers + 1) * (m.first_tokens + m.decode_ticks)}
+    again = engine.run(reqs)
+    for req in reqs:
+        toks = res[req.rid].tokens
+        assert len(toks) == req.max_new_tokens and 0 <= toks.min() and toks.max() < cfg.vocab
+        np.testing.assert_array_equal(again[req.rid].tokens, toks)

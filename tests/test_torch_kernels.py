@@ -84,7 +84,9 @@ def test_cpu_tensors_take_plain_versions_and_count_no_launch():
     ops.flash_attention(q, q[:, :2], q[:, :2])
     assert ops.launch_counts() == {"gs_rmsnorm": 0, "flash_attention": 0,
                                    "flash_attention_bwd_dq": 0,
-                                   "flash_attention_bwd_dkv": 0, "gs_adam": 0}
+                                   "flash_attention_bwd_dkv": 0, "gs_adam": 0,
+                                   "gs_fixed_recip": 0, "gs_fixed_softmax": 0,
+                                   "gs_fixed_rmsnorm": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
