@@ -65,6 +65,24 @@ Phases, in order; any failure exits nonzero before the last line:
    kernels timed at the path's shapes beside their plain versions and a
    dequantize-then-library call (``F.rms_norm``, ``torch.reciprocal``,
    ``torch.softmax`` on ``x.float() * scale``).
+8. The kernel benchmark's kernels (gs_recip, gs_rsqrt / gs_sqrt,
+   gs_softmax), whose only caller is the kernel benchmark, in the reference
+   too: (a) each against its plain version over the (dtype, p, iters,
+   variant) grid of ``tests/test_torch_kernels.py`` and two f32 points,
+   (8, 0) and (7, 1), where the Goldschmidt error shows: gs_recip and the
+   three modes of gs_rsqrt bit-equal (any NaN matching any NaN) at
+   (256, 128), (33, 517), (4096, 128) and on a row of specials, gs_softmax at
+   (16, 384), (37, 200) and (8, 32000) within 2^-18 of the plain value (f32)
+   or one ulp (bf16), every launch counted; (b) their VJPs through
+   ``kernels.ops`` on the card against the same on the CPU; (c) gs_rmsnorm,
+   flash_attention and gs_adam on the benchmark's own full-size inputs
+   against their plain versions at phase 2's limits (gs_adam bit-equal), then
+   the port's kernel benchmark (``repro_torch.benchmarks.bench_kernels.records``,
+   full size) on the card: every row within its bound, every launch the
+   benchmark's loop makes counted exactly; (d) the three kernels timed at
+   the benchmark's shapes and at (4096, 128) / (8, 32000) beside their plain
+   versions and ``torch.reciprocal`` / ``torch.rsqrt`` / ``torch.sqrt`` /
+   ``torch.softmax``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -144,16 +162,19 @@ def profiled(fn):
 
 def device_ms(fn, n: int):
     """Device time per call: the summed duration of the CUDA work ``n``
-    calls launched; None when the profiler reports no device events."""
+    calls launched; None when the profiler reports no device events in
+    three tries (a trace can come back empty)."""
     fn()
 
     def calls():
         for _ in range(n):
             fn()
 
-    _, events = profiled(calls)
-    total_us = sum(e.time_range.elapsed_us() for e in events)
-    return total_us / n / 1e3 if events else None
+    for _ in range(3):
+        _, events = profiled(calls)
+        if events:
+            return sum(e.time_range.elapsed_us() for e in events) / n / 1e3
+    return None
 
 
 # -- phase 2 -------------------------------------------------------------------
@@ -1062,6 +1083,282 @@ def time_fixed_kernels():
     return rows
 
 
+# -- phase 8 -------------------------------------------------------------------
+
+# the (dtype, p, iters, variant) grid of tests/test_torch_kernels.py, and two
+# f32 points whose Goldschmidt error (2^-9 seed-only, 2^-14 after one pass)
+# stands far above f32 roundoff, so that an exact 1/sum in gs_softmax fails
+ELEMENTWISE_PRECISIONS = (("float32", 7, 2, "feedback"), ("float32", 12, 1, "pipelined"),
+                          ("bfloat16", 8, 0, "feedback"), ("bfloat16", 8, 0, "pipelined"),
+                          ("float32", 8, 0, "feedback"), ("float32", 7, 1, "pipelined"))
+# ±0, the smallest subnormal, ±inf, NaN, -2, the largest and smallest normal
+SPECIALS = [0.0, -0.0, 1e-45, float("inf"), float("-inf"), float("nan"), -2.0,
+            3.4028234663852886e38, 1.1754943508222875e-38]
+# gs_softmax vs its plain version, elementwise relative at f32: expf and the
+# row sum's order differ by ulps (4.8e-7 at most on the H100, 8 times less
+# than this limit); an exact 1/sum instead of the Goldschmidt one moves a
+# row by the datapath's error, 2^-9 at (8, 0) and 2^-14 at (7, 1).
+SOFTMAX_F32_RTOL = 2.0 ** -18
+BENCH_KERNELS = ("gs_recip", "gs_rsqrt", "gs_softmax")
+
+
+def bit_equal(a, b) -> bool:
+    """Equal dtype, shape and bit patterns, any NaN matching any NaN."""
+    ints = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    same = (a.view(ints) == b.view(ints)) | (torch.isnan(a) & torch.isnan(b))
+    return a.dtype == b.dtype and a.shape == b.shape and bool(same.all())
+
+
+def max_abs_diff(a, b) -> float:
+    """max |a - b| over the elements where both are finite."""
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    return (a.float() - b.float()).abs()[fin].max().item() if fin.any() else 0.0
+
+
+def check_bench_kernels():
+    """(a) gs_recip and gs_rsqrt's three modes bit-equal to their plain
+    versions, gs_softmax within SOFTMAX_F32_RTOL (f32) or one ulp (bf16);
+    returns the worst |kernel - plain| of each."""
+    from repro_torch.kernels import gs_elementwise as elementwise_kernel
+    from repro_torch.kernels import gs_softmax as softmax_kernel
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    r = np.random.RandomState(8)
+    xs = []
+    for shape in ((256, 128), (33, 517), (4096, 128)):
+        mag = np.exp2(r.uniform(-60, 60, shape)) * (1 + r.rand(*shape))
+        xs.append(torch.from_numpy(mag * np.where(r.rand(*shape) < 0.5, -1, 1)).float().to(dev))
+    xs.append(torch.tensor(SPECIALS, device=dev))
+    rows = [torch.from_numpy(4 * r.randn(*shape)).float().to(dev)
+            for shape in ((16, 384), (37, 200), (8, 32000))]
+    worst = {name: 0.0 for name in BENCH_KERNELS}
+    calls = {name: 0 for name in BENCH_KERNELS}
+    ops.reset_launch_counts()
+    for dname, p, iters, variant in ELEMENTWISE_PRECISIONS:
+        dtype = getattr(torch, dname)
+        kw = dict(p=p, iters=iters, variant=variant)
+        for x32 in xs:
+            x = x32.to(dtype)
+            pairs = [("gs_recip", "recip", elementwise_kernel.gs_recip(x, **kw),
+                      ref.reciprocal(x, **kw))]
+            for mode in ("rsqrt", "sqrt"):
+                pairs.append(("gs_rsqrt", mode, elementwise_kernel.gs_rsqrt(x, mode=mode, **kw),
+                              ref.rsqrt(x, mode=mode, **kw)))
+            got = elementwise_kernel.gs_rsqrt(x, mode="sqrt_both", **kw)
+            want = ref.rsqrt(x, mode="sqrt_both", **kw)
+            pairs += [("gs_rsqrt", "sqrt_both: sqrt", got[0], want[0]),
+                      ("gs_rsqrt", "sqrt_both: rsqrt", got[1], want[1])]
+            calls["gs_recip"] += 1
+            calls["gs_rsqrt"] += 3
+            for name, what, a, b in pairs:
+                if not bit_equal(a, b):
+                    fail(f"{what} {dname} {tuple(x.shape)} p={p} iters={iters} {variant}: "
+                         f"not bit-equal to the plain version (max |diff| "
+                         f"{max_abs_diff(a, b):.3e}, NaN classes equal "
+                         f"{bool((torch.isnan(a) == torch.isnan(b)).all())})")
+                worst[name] = max(worst[name], max_abs_diff(a, b))
+        print(f"  {dname} p={p} iters={iters} {variant}: gs_recip, gs_rsqrt (rsqrt, sqrt, "
+              f"sqrt_both) bit-equal to the plain versions at (256, 128), (33, 517), "
+              f"(4096, 128) and the {len(SPECIALS)} specials")
+        for x32 in rows:
+            x = x32.to(dtype)
+            got, want = softmax_kernel.gs_softmax(x, **kw), ref.softmax(x, **kw)
+            calls["gs_softmax"] += 1
+            if dtype == torch.float32:
+                pos = want > 0
+                err = ((got - want).abs()[pos] / want[pos]).max().item()
+                ok = bool(((got - want).abs() <= SOFTMAX_F32_RTOL * want).all())
+                limit = f"relative, limit {SOFTMAX_F32_RTOL:.3e}"
+            else:
+                err = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs().max().item()
+                ok = err <= 1
+                limit = "ulps, limit 1"
+            print(f"    gs_softmax {tuple(x.shape)}: max |kernel - plain| "
+                  f"{max_abs_diff(got, want):.3e}, {err:.3e} {limit}")
+            if not ok or got.dtype != dtype:
+                fail(f"gs_softmax {dname} {tuple(x.shape)} p={p} {variant}: {err} ({limit})")
+            worst["gs_softmax"] = max(worst["gs_softmax"], max_abs_diff(got, want))
+    counts = ops.launch_counts()
+    if {name: counts[name] for name in BENCH_KERNELS} != calls:
+        fail(f"8a launches {counts} != the calls made {calls}")
+    print(f"  launches {calls}, as many as the calls made")
+    torch.cuda.synchronize()
+    return worst
+
+
+def check_bench_vjps():
+    """(b) torch.autograd.grad through ops.gs_recip/rsqrt/sqrt/softmax on
+    the card against the CPU: within 2^-18 (f32) or 2^-7 (bf16) of the
+    largest element; the softmax's at least 2^-12, as its forward."""
+    from repro_torch.kernels import ops
+
+    r = np.random.RandomState(9)
+    for dtype, bound in ((torch.float32, 2.0**-18), (torch.bfloat16, 2.0**-7)):
+        pos = torch.from_numpy(r.uniform(0.05, 20.0, (256, 128))).float().to(dtype)
+        rows = torch.from_numpy(4 * r.randn(16, 384)).float().to(dtype)
+        errs = {}
+        for name, op, x, tol in (("gs_recip", ops.gs_recip, pos, bound),
+                                 ("gs_rsqrt", ops.gs_rsqrt, pos, bound),
+                                 ("gs_sqrt", ops.gs_sqrt, pos, bound),
+                                 ("gs_softmax", ops.gs_softmax, rows, max(bound, 2.0**-12))):
+            cot = torch.from_numpy(r.randn(*x.shape)).float().to(dtype)
+            grads = []
+            for dev in ("cuda", "cpu"):
+                xd = x.to(dev).requires_grad_()
+                (gd,) = torch.autograd.grad(op(xd), xd, cot.to(dev))
+                grads.append(gd.float().cpu())
+            errs[name] = ((grads[0] - grads[1]).abs().max() / grads[1].abs().max()).item()
+            if not errs[name] <= tol:
+                fail(f"{name} VJP {dtype}: card vs CPU {errs[name]:.3e} > {tol:.3e}")
+        print(f"  {str(dtype).split('.')[-1]} VJPs, card vs CPU, max err over the largest "
+              "element: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (bound {bound:.3e}, softmax {max(bound, 2.0**-12):.3e})")
+
+
+def check_bench_shapes():
+    """(c) before the benchmark: the kernels of its float rows that phase 2
+    holds at other shapes (gs_rmsnorm, flash_attention, gs_adam), on the
+    benchmark's own full-size numpy draws, at f32 and bf16 (gs_adam at f32,
+    the one dtype the benchmark and the kernel take) under both policies and
+    both variants, against their plain versions at phase 2's limits
+    (gs_adam bit-equal); returns the worst |kernel - plain| of each."""
+    from repro_torch.benchmarks import bench_kernels
+    from repro_torch.core.goldschmidt import DEFAULT_P, precision_policy
+    from repro_torch.kernels import flash_attention as flash_kernel
+    from repro_torch.kernels import gs_adam as adam_kernel
+    from repro_torch.kernels import gs_rmsnorm as rms_kernel
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    args_np = {case[0]: case[1] for case in bench_kernels._bench_cases(smoke=False)}
+    worst = {"gs_rmsnorm": 0.0, "flash_attention": 0.0, "gs_adam": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        bound = ERR_BOUNDS[name]
+        nx, ng = (torch.from_numpy(a).to(dtype).to(dev) for a in args_np["gs_rmsnorm"])
+        gain = ng.float()  # the benchmark widens a bf16 gain exactly
+        q, k, v = (torch.from_numpy(a).to(dtype).to(dev) for a in args_np["flash_attention"])
+        # the seed policy and the dtype's (one point at f32)
+        for p, iters in dict.fromkeys(((DEFAULT_P, 2), precision_policy(dtype))):
+            for variant in ("feedback", "pipelined"):
+                kw = dict(p=p, iters=iters, variant=variant)
+                pairs = [("gs_rmsnorm", tuple(nx.shape),
+                          rms_kernel.gs_rmsnorm(nx, gain, eps=1e-6, **kw),
+                          ref.rmsnorm(nx, gain, eps=1e-6, **kw)),
+                         ("flash_attention", tuple(q.shape),
+                          flash_kernel.flash_attention(q, k, v, causal=True, **kw),
+                          ref.attention(q, k, v, causal=True, **kw))]
+                for kname, shape, got, want in pairs:
+                    err = (got.float() - want.float()).abs().max().item()
+                    print(f"  {kname} {name} {shape} p={p} iters={iters} {variant}: "
+                          f"max |kernel - plain| {err:.3e} (bound {bound:.3e})")
+                    if not (err <= bound and got.dtype == dtype):
+                        fail(f"{kname} {name} {shape} p={p} {variant} at the benchmark's "
+                             f"shape: {err}")
+                    worst[kname] = max(worst[kname], err)
+    w, g, m, v = (torch.from_numpy(a).to(dev) for a in args_np["gs_adam"])
+    bc = ops.adam_scalars(1, 1e-3, beta1=0.9, beta2=0.999, device=dev)
+    for p, iters in dict.fromkeys(((DEFAULT_P, 2), precision_policy(torch.float32))):
+        for variant in ("feedback", "pipelined"):
+            kw = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.0, p=p, iters=iters,
+                      variant=variant)
+            got = adam_kernel.gs_adam_update(w, g, m, v, bc, **kw)
+            want = ref.adam_update(w, g, m, v, bc, **kw)
+            if not all(bit_equal(a, b) for a, b in zip(got, want)):
+                fail(f"gs_adam ({w.numel()},) p={p} iters={iters} {variant}: p/m/v not "
+                     f"bit-equal to the plain version, max |diff| "
+                     f"{[max_abs_diff(a, b) for a, b in zip(got, want)]}")
+            worst["gs_adam"] = max(worst["gs_adam"], *[max_abs_diff(a, b)
+                                                       for a, b in zip(got, want)])
+    print(f"  gs_adam float32 ({w.numel()},) step 1: p, m, v bit-equal to the plain version "
+          f"at p={DEFAULT_P} iters=2 (both policies at f32), both variants")
+    torch.cuda.synchronize()
+    return worst
+
+
+def run_bench():
+    """(c) the port's kernel benchmark at full size on the card: every row
+    within its bound; the launch counters zeroed just before and read just
+    after must equal the launches its loop makes."""
+    from repro_torch.benchmarks import bench_kernels
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    recs = bench_kernels.records(smoke=False, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for r in recs:
+        cfg = r["config"]
+        pi = f"p={cfg['p']}/i={cfg['iters']}" if cfg else "-"
+        print(f"  {r['kernel']} {r['dtype']} {r['impl']} {r['policy']} {pi}: "
+              f"{r['us_per_call']} us per call, max_err {r['max_err']:.3e} "
+              f"(bound {r['err_bound']:.3e}) ok={r['ok']}")
+    bad = [r for r in recs if not r["ok"]]
+    if bad:
+        fail(f"kernel benchmark rows over their bound: {bad}")
+    launched = bench_kernels.expected_launches(recs, smoke=False)
+    want = {name: launched.get(name, 0) for name in counts}
+    print(f"  {len(recs)} rows in {wall:.1f} s, all within bound; launches {counts}; expected "
+          f"{want} ({bench_kernels.calls_per_row(False)} calls per kernel row)")
+    if counts != want or min(counts[name] for name in BENCH_KERNELS) == 0:
+        fail(f"kernel benchmark launch counts {counts} != {want}")
+    return counts
+
+
+def time_bench_kernels():
+    """(d) the three kernels on positive f32 inputs (the benchmark's draw),
+    p 7, iters 2, feedback."""
+    from repro_torch.kernels import gs_elementwise as elementwise_kernel
+    from repro_torch.kernels import gs_softmax as softmax_kernel
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(10)
+    kw = dict(p=7, iters=2, variant="feedback")
+    rows = {}
+    cases = [("gs_recip", "recip", (256, 128), "bench"), ("gs_recip", "recip", (4096, 128), "large"),
+             ("gs_rsqrt", "rsqrt", (256, 128), "bench"), ("gs_rsqrt", "rsqrt", (4096, 128), "large"),
+             ("gs_rsqrt", "sqrt", (256, 128), "bench sqrt"),
+             ("gs_rsqrt", "sqrt", (4096, 128), "large sqrt"),
+             ("gs_softmax", "softmax", (16, 384), "bench"),
+             ("gs_softmax", "softmax", (8, 32000), "large")]
+    for name, fn, shape, label in cases:
+        n = shape[0] * shape[1]
+        if fn == "softmax":
+            x = 4 * torch.randn(shape, generator=g, device=dev)
+            kern = lambda: softmax_kernel.gs_softmax(x, **kw)  # noqa: E731
+            plain = lambda: ref.softmax(x, **kw)  # noqa: E731
+            lib = lambda: torch.softmax(x, dim=-1)  # noqa: E731
+            flops = 7 * n  # max, two subtracts, two exps, an add and a multiply
+        else:
+            x = torch.randn(shape, generator=g, device=dev).abs() + 0.1
+            if fn == "recip":
+                kern = lambda: elementwise_kernel.gs_recip(x, **kw)  # noqa: E731
+                plain = lambda: ref.reciprocal(x, **kw)  # noqa: E731
+                lib = lambda: torch.reciprocal(x)  # noqa: E731
+                flops = (2 + 3 * kw["iters"]) * n
+            else:
+                kern = lambda: elementwise_kernel.gs_rsqrt(x, mode=fn, **kw)  # noqa: E731
+                plain = lambda: ref.rsqrt(x, mode=fn, **kw)  # noqa: E731
+                lib = (lambda: torch.rsqrt(x)) if fn == "rsqrt" else (lambda: torch.sqrt(x))
+                flops = (4 + 6 * kw["iters"]) * n
+        b, by = bound_ms(8 * n, flops, "float32")  # read 4 bytes and write 4 per element
+        rows[(name, label)] = dict(
+            ms=cuda_ms(kern, 200), plain_ms=cuda_ms(plain, 20), library_ms=cuda_ms(lib, 200),
+            bound_ms=b, bound_by=by, device_ms=[device_ms(f, 50) for f in (kern, plain, lib)],
+            shape=f"{shape} float32" + (" sqrt" if fn == "sqrt" else ""))
+    us = lambda v: "not measured" if v is None else f"{v * 1e3:.2f} us"  # noqa: E731
+    for (kname, label), r in rows.items():
+        print(f"  {kname} {label} {r['shape']}: per call (CUDA events, back to back) kernel "
+              f"{us(r['ms'])}, plain {us(r['plain_ms'])}, library {us(r['library_ms'])}; "
+              f"device time (profiler) kernel {us(r['device_ms'][0])}, plain "
+              f"{us(r['device_ms'][1])}, library {us(r['device_ms'][2])}; bound "
+              f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1120,6 +1417,16 @@ def main() -> None:
     counts_int8, stats["int8"] = serve_int8(args.seed, seq_f32)
     timing.update(time_fixed_kernels())
 
+    print("== 8. the kernel benchmark's kernels: gs_recip, gs_rsqrt / gs_sqrt, gs_softmax")
+    t8 = time.perf_counter()
+    worst.update(check_bench_kernels())
+    check_bench_vjps()
+    for name, err in check_bench_shapes().items():
+        worst[name] = max(worst[name], err)
+    counts_bench = run_bench()
+    timing.update(time_bench_kernels())
+    print(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
+
     picks = {"gs_rmsnorm": ("decode", "gs_rmsnorm.cu", "gs_rmsnorm.py:64"),
              "flash_attention": ("float32", "flash_attention.cu", "flash_attention.py:142"),
              "flash_attention_bwd_dq": ("float32", "flash_attention_bwd.cu",
@@ -1129,11 +1436,16 @@ def main() -> None:
              "gs_adam": ("float32", "gs_adam.cu", "gs_adam.py:114"),
              "gs_fixed_recip": ("bench", "gs_fixed.cu", "gs_fixed.py:135"),
              "gs_fixed_softmax": ("bench", "gs_fixed.cu", "gs_fixed.py:205"),
-             "gs_fixed_rmsnorm": ("decode", "gs_fixed.cu", "gs_fixed.py:282")}
+             "gs_fixed_rmsnorm": ("decode", "gs_fixed.cu", "gs_fixed.py:282"),
+             "gs_recip": ("bench", "gs_elementwise.cu", "gs_recip.py:72"),
+             "gs_rsqrt": ("bench", "gs_elementwise.cu", "gs_rsqrt.py:78"),
+             "gs_softmax": ("bench", "gs_softmax.cu", "gs_softmax.py:55")}
     kernels = []
     for name, (label, source, replaces) in picks.items():
         r = timing[(name, label)]
-        if name in FIXED_KERNELS:  # launches from phase 7c, the int8 path
+        if name in BENCH_KERNELS:  # launches from phase 8c, the kernel benchmark
+            launches = counts_bench[name]
+        elif name in FIXED_KERNELS:  # launches from phase 7c, the int8 path
             launches = counts_int8[name]
         elif name in ("gs_rmsnorm", "flash_attention"):
             launches = counts[name]
@@ -1145,13 +1457,17 @@ def main() -> None:
                "max_abs_err": worst[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r["library_ms"], "device_ms": r["device_ms"][0],
-               "shape": r["shape"], "launches_train_f32": train32["counts"][name],
-               "launches_int8_serve": counts_int8[name]}
+               "shape": r["shape"], "launches_serve_f32": counts[name],
+               "launches_train_f32": train32["counts"][name],
+               "launches_int8_serve": counts_int8[name], "launches_bench": counts_bench[name]}
         if name in ("gs_fixed_recip", "gs_fixed_softmax"):
             row["note"] = ("not on a model path of the reference either: only 7a and 7d "
                            "launch it; library_ms is a dequantize plus one call")
         elif name == "gs_fixed_rmsnorm":
             row["note"] = "library_ms is a dequantize plus F.rms_norm"
+        elif name in BENCH_KERNELS:
+            row["note"] = ("not on a model path of the reference either: launches are the "
+                           "kernel benchmark's (8c)")
         kernels.append(row)
     train_stats = {k: {key: v[key] for key in ("median_step_ms", "tokens_per_s", "peak_gb",
                                                 "losses")}

@@ -54,6 +54,13 @@ _SIGNATURES = {
     # x, scale, gain, words, out, rows, d, inv_d, eps, frac_bits, p, iters,
     # stream
     "gs_fixed_rmsnorm_launch": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_I] * 3 + [_P],
+    # x, rom, out, n, p, iters, pipelined, is_bf16, stream
+    "gs_recip_launch": [_P] * 3 + [_L] + [_I] * 4 + [_P],
+    # x, rom, out0, out1, n, p, iters, pipelined, rsqrt_scale, mode, is_bf16,
+    # stream
+    "gs_rsqrt_launch": [_P] * 4 + [_L] + [_I] * 3 + [_F] + [_I] * 2 + [_P],
+    # x, rom, out, rows, d, p, iters, pipelined, is_bf16, stream
+    "gs_softmax_launch": [_P] * 3 + [_I] * 6 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -139,6 +139,24 @@ __device__ __forceinline__ float sqrt_positive(float x, const Rom& rom) {
   return __fmul_rn(g, pow2_from_biased(127 + half_e));
 }
 
+// Block-wide reduction of one value per thread over a block of kThreads
+// threads; every thread gets the result.  `part` holds kThreads / 32 values.
+// The warps combine in a fixed order, so a launch's result does not depend on
+// scheduling.
+template <int kThreads, typename T, typename Op>
+__device__ __forceinline__ T block_reduce(T v, T* part, Op op) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();  // part may still be read from a previous reduction
+  if (lane == 0) part[warp] = v;
+  __syncthreads();
+  v = part[0];
+#pragma unroll
+  for (int w = 1; w < kThreads / 32; ++w) v = op(v, part[w]);
+  return v;
+}
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 

@@ -67,22 +67,6 @@ gs_fixed_recip_kernel(const int8_t* __restrict__ x, const float* __restrict__ in
   }
 }
 
-// Block-wide reduction of one value per thread; every thread gets the
-// result.  `part` holds kWarps values.
-template <typename T, typename Op>
-__device__ __forceinline__ T block_reduce(T v, T* part, Op op) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();  // part may still be read from a previous reduction
-  if (lane == 0) part[warp] = v;
-  __syncthreads();
-  v = part[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) v = op(v, part[w]);
-  return v;
-}
-
 __global__ void __launch_bounds__(kThreads)
 gs_fixed_softmax_kernel(const int8_t* __restrict__ x, const float* __restrict__ scale,
                         const uint32_t* __restrict__ words_g, float* __restrict__ out,
@@ -98,11 +82,11 @@ gs_fixed_softmax_kernel(const int8_t* __restrict__ x, const float* __restrict__ 
   float m = -__int_as_float(0x7F800000);
   for (int i = threadIdx.x; i < d; i += kThreads)
     m = fmaxf(m, __fmul_rn(static_cast<float>(xr[i]), sc));
-  m = block_reduce(m, s_part, [](float a, float b) { return fmaxf(a, b); });
+  m = gs::block_reduce<kThreads>(m, s_part, [](float a, float b) { return fmaxf(a, b); });
   float acc = 0.0f;
   for (int i = threadIdx.x; i < d; i += kThreads)
     acc = __fadd_rn(acc, expf(__fsub_rn(__fmul_rn(static_cast<float>(xr[i]), sc), m)));
-  acc = block_reduce(acc, s_part, [](float a, float b) { return __fadd_rn(a, b); });
+  acc = gs::block_reduce<kThreads>(acc, s_part, [](float a, float b) { return __fadd_rn(a, b); });
   if (threadIdx.x == 0) {  // the row sum is in [1, d]: a positive normal
     const uint32_t mant = gsf::mantissa_with_one(acc);
     const uint32_t idx = min((mant & 0x7FFFFFu) >> (23 - p), (1u << p) - 1u);
@@ -134,7 +118,7 @@ gs_fixed_rmsnorm_kernel(const int8_t* __restrict__ x, const float* __restrict__ 
     const int v = xr[i];
     ss += v * v;
   }
-  ss = block_reduce(ss, s_part, [](int a, int b) { return a + b; });
+  ss = gs::block_reduce<kThreads>(ss, s_part, [](int a, int b) { return a + b; });
   if (threadIdx.x == 0) {
     const float ms = __fadd_rn(
         __fmul_rn(__fmul_rn(__int2float_rn(ss), __fmul_rn(sc, sc)), inv_d), eps);

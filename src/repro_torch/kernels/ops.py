@@ -13,12 +13,16 @@ Settings are the registry defaults of the reference (``variant`` =
 caller pins them, as ``NumericsPolicy.kernel_precision`` does); there is no
 autotuning.
 
-``gs_rmsnorm`` and ``flash_attention`` are differentiable where the
-reference has a ``custom_vjp``: when autograd records the call, the forward
-saves its residuals (the rsqrt column; the row statistics m, l) and the
-backward is the reference's rule — a torch expression for the norm, the two
-backward kernels for attention.  :func:`launch_counts` reads each kernel's
-launch counter.
+The float ops are differentiable where the reference has a
+``custom_vjp``: when autograd records the call, the forward saves its
+residuals and the backward is the reference's rule on them — for
+``gs_recip``, ``gs_rsqrt`` and ``gs_softmax`` the op's own output
+(``-q²·ḡ``, ``-y³/2·ḡ``, ``y·(ḡ - Σ ḡ·y)``), for ``gs_sqrt`` the rsqrt
+co-output of the same launch (``rs/2·ḡ``), for ``gs_rmsnorm`` the rsqrt
+column, all as torch expressions; for ``flash_attention`` the row
+statistics m, l and the two backward kernels.  :func:`launch_counts` reads
+each kernel's launch counter (``gs_sqrt`` counts under ``gs_rsqrt``: one
+kernel).
 
 The fixed-point ops (``gs_fixed_recip``, ``gs_fixed_softmax``,
 ``gs_fixed_rmsnorm``) take int8 operands and a per-tensor scale (a Python
@@ -40,10 +44,13 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import gs_adam as _adam
 from repro_torch.kernels import gs_fixed as _fixed
+from repro_torch.kernels import gs_elementwise as _elementwise
 from repro_torch.kernels import gs_rmsnorm as _rmsnorm
+from repro_torch.kernels import gs_softmax as _softmax
 from repro_torch.kernels import ref
 
-__all__ = ["gs_rmsnorm", "flash_attention", "gs_adam_update", "adam_scalars",
+__all__ = ["gs_recip", "gs_rsqrt", "gs_sqrt", "gs_softmax", "gs_rmsnorm",
+           "flash_attention", "gs_adam_update", "adam_scalars",
            "gs_fixed_recip", "gs_fixed_softmax", "gs_fixed_rmsnorm",
            "launch_counts", "reset_launch_counts"]
 
@@ -57,6 +64,9 @@ _COUNTERS = {
     "gs_fixed_recip": (_fixed, "launches_recip"),
     "gs_fixed_softmax": (_fixed, "launches_softmax"),
     "gs_fixed_rmsnorm": (_fixed, "launches_rmsnorm"),
+    "gs_recip": (_elementwise, "launches_recip"),
+    "gs_rsqrt": (_elementwise, "launches_rsqrt"),
+    "gs_softmax": (_softmax, "launches"),
 }
 
 
@@ -80,6 +90,125 @@ def _on_cpu(x: torch.Tensor, op: str) -> bool:
 def _records(*tensors: torch.Tensor) -> bool:
     """Whether autograd records a call on these inputs."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _run_recip(x: torch.Tensor, kw: dict) -> torch.Tensor:
+    if _on_cpu(x, "gs_recip"):
+        return ref.reciprocal(x, **kw)
+    return _elementwise.gs_recip(x.contiguous(), **kw)
+
+
+def _run_rsqrt(x: torch.Tensor, kw: dict, mode: str):
+    if _on_cpu(x, "gs_rsqrt"):
+        return ref.rsqrt(x, mode=mode, **kw)
+    return _elementwise.gs_rsqrt(x.contiguous(), mode=mode, **kw)
+
+
+def _run_softmax(x: torch.Tensor, kw: dict) -> torch.Tensor:
+    if _on_cpu(x, "gs_softmax"):
+        return ref.softmax(x, **kw)
+    return _softmax.gs_softmax(x.contiguous(), **kw)
+
+
+class _Recip(torch.autograd.Function):
+    """The reference's ``_recip`` custom_vjp: ``dx = -q²·ḡ`` on the output."""
+
+    @staticmethod
+    def forward(ctx, x, kw):
+        q = _run_recip(x, kw)
+        ctx.save_for_backward(q)
+        return q
+
+    @staticmethod
+    def backward(ctx, g):
+        (q,) = ctx.saved_tensors
+        q32 = q.to(torch.float32)
+        return (-(q32 * q32) * g.to(torch.float32)).to(q.dtype), None
+
+
+class _Rsqrt(torch.autograd.Function):
+    """The reference's ``_rsqrt`` custom_vjp: ``dx = -y³/2·ḡ`` on the output."""
+
+    @staticmethod
+    def forward(ctx, x, kw):
+        y = _run_rsqrt(x, kw, "rsqrt")
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        y32 = y.to(torch.float32)
+        return (-0.5 * y32 * y32 * y32 * g.to(torch.float32)).to(y.dtype), None
+
+
+class _Sqrt(torch.autograd.Function):
+    """The reference's ``_sqrt`` custom_vjp: the forward launches
+    ``sqrt_both`` and keeps the rsqrt co-output; ``dx = rs/2·ḡ``."""
+
+    @staticmethod
+    def forward(ctx, x, kw):
+        y, rs = _run_rsqrt(x, kw, "sqrt_both")
+        ctx.save_for_backward(rs)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (rs,) = ctx.saved_tensors
+        return (0.5 * rs.to(torch.float32) * g.to(torch.float32)).to(rs.dtype), None
+
+
+class _Softmax(torch.autograd.Function):
+    """The reference's ``_softmax`` custom_vjp: ``dx = y·(ḡ - Σ ḡ·y)`` on
+    the output, over the last axis."""
+
+    @staticmethod
+    def forward(ctx, x, kw):
+        y = _run_softmax(x, kw)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        y32, g32 = y.to(torch.float32), g.to(torch.float32)
+        dot = torch.sum(y32 * g32, dim=-1, keepdim=True)
+        return (y32 * (g32 - dot)).to(y.dtype), None
+
+
+def _gs_kw(x: torch.Tensor, p: Optional[int], iters: Optional[int], variant: str) -> dict:
+    p, iters = resolve_precision(x.dtype, p, iters)
+    return dict(p=p, iters=iters, variant=variant)
+
+
+def gs_recip(x: torch.Tensor, *, p: Optional[int] = None, iters: Optional[int] = None,
+             variant: str = "feedback") -> torch.Tensor:
+    """1/x elementwise (any shape, f32 or bf16), in x's dtype."""
+    kw = _gs_kw(x, p, iters, variant)
+    return _Recip.apply(x, kw) if _records(x) else _run_recip(x, kw)
+
+
+def gs_rsqrt(x: torch.Tensor, *, p: Optional[int] = None, iters: Optional[int] = None,
+             variant: str = "feedback") -> torch.Tensor:
+    """1/sqrt(x) elementwise (any shape, f32 or bf16), in x's dtype."""
+    kw = _gs_kw(x, p, iters, variant)
+    return _Rsqrt.apply(x, kw) if _records(x) else _run_rsqrt(x, kw, "rsqrt")
+
+
+def gs_sqrt(x: torch.Tensor, *, p: Optional[int] = None, iters: Optional[int] = None,
+            variant: str = "feedback") -> torch.Tensor:
+    """sqrt(x) elementwise (any shape, f32 or bf16), in x's dtype: the
+    rsqrt kernel's g-sequence."""
+    kw = _gs_kw(x, p, iters, variant)
+    return _Sqrt.apply(x, kw) if _records(x) else _run_rsqrt(x, kw, "sqrt")
+
+
+def gs_softmax(x: torch.Tensor, *, p: Optional[int] = None, iters: Optional[int] = None,
+               variant: str = "feedback") -> torch.Tensor:
+    """Softmax over the last axis (any leading shape, f32 or bf16), in x's
+    dtype."""
+    kw = _gs_kw(x, p, iters, variant)
+    return _Softmax.apply(x, kw) if _records(x) else _run_softmax(x, kw)
 
 
 class _RMSNorm(torch.autograd.Function):

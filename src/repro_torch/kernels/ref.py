@@ -19,8 +19,61 @@ import torch
 
 from repro_torch.core.fixed_point_torch import (FixedPointTorch, _mant_to_reg, _peel,
                                                _reg_to_f32, msb32, rom_words)
-from repro_torch.core.goldschmidt import rom
+from repro_torch.core.goldschmidt import F32_ONE_BITS, rom
 from repro_torch.kernels import common
+
+
+def reciprocal(x: torch.Tensor, *, p: int, iters: int, variant: str) -> torch.Tensor:
+    """``1/x`` elementwise, f32 inside, in x's dtype.  Biased exponent 0
+    (zero or subnormal) gives ±inf, ±inf gives ±0, NaN propagates; the
+    quotient's scale ``2^(127-e)`` is 0 at e = 254 (flush at the range
+    edge)."""
+    sign, e, mant = common.split_fields(x)
+    q = common.gs_recip_core(common.mantissa_to_m(mant), rom("recip", p, str(x.device)),
+                             mant, p=p, iters=iters, variant=variant)
+    out = ((q * common.pow2_from_biased(254 - e)).view(torch.int32) | sign).view(torch.float32)
+    signf = (sign | F32_ONE_BITS).view(torch.float32)  # ±1
+    out = torch.where(e == 0, signf * float("inf"), out)
+    out = torch.where((e == 255) & (mant == 0), signf * 0.0, out)
+    out = torch.where((e == 255) & (mant != 0), float("nan"), out)
+    return out.to(x.dtype)
+
+
+def rsqrt(x: torch.Tensor, *, p: int, iters: int, variant: str, mode: str = "rsqrt"):
+    """``1/sqrt(x)`` (``mode="rsqrt"``), ``sqrt(x)`` (``"sqrt"``) or the pair
+    ``(sqrt(x), 1/sqrt(x))`` (``"sqrt_both"``) elementwise, from one coupled
+    iteration over m ∈ [1, 4), in x's dtype.  Zero or subnormal gives inf /
+    0, inf gives 0 / inf, x < 0 or NaN gives NaN."""
+    x32 = x.to(torch.float32)
+    _, e, mant = common.split_fields(x32)
+    m, half_e = common._rsqrt_fold(x32)
+    g, h = common.gs_rsqrt_core(m, rom("rsqrt", p, str(x.device)), p=p, iters=iters,
+                                variant=variant)
+    rs = (2.0 * h) * common.pow2_from_biased(127 - half_e)
+    sq = g * common.pow2_from_biased(127 + half_e)
+    zero_in, inf_in = e == 0, (e == 255) & (mant == 0)
+    nan_in = ((e == 255) & (mant != 0)) | (x32 < 0.0)
+    inf = float("inf")
+    rs = torch.where(nan_in, float("nan"), torch.where(inf_in, 0.0, torch.where(zero_in, inf, rs)))
+    sq = torch.where(nan_in, float("nan"), torch.where(inf_in, inf, torch.where(zero_in, 0.0, sq)))
+    if mode == "rsqrt":
+        return rs.to(x.dtype)
+    if mode == "sqrt":
+        return sq.to(x.dtype)
+    if mode == "sqrt_both":
+        return sq.to(x.dtype), rs.to(x.dtype)
+    raise ValueError(f"unknown mode {mode!r}")
+
+
+def softmax(x: torch.Tensor, *, p: int, iters: int, variant: str) -> torch.Tensor:
+    """Softmax over the last axis, f32 inside: row max, ``exp``, row sum, one
+    Goldschmidt reciprocal of the sum (>= 1), a multiply; in x's dtype."""
+    x32 = x.to(torch.float32)
+    e = torch.exp(x32 - torch.amax(x32, dim=-1, keepdim=True))
+    s = torch.sum(e, dim=-1, keepdim=True)
+    inv = common.recip_positive(s, rom("recip", p, str(x.device)), p=p, iters=iters,
+                                variant=variant)
+    return (e * inv).to(x.dtype)
 
 
 def rmsnorm(x: torch.Tensor, gain: torch.Tensor, *, eps: float, p: int,
@@ -127,6 +180,53 @@ def adam_update(param: torch.Tensor, grad: torch.Tensor, m: torch.Tensor,
     inv = common.recip_positive(s + eps, rom("recip", p, str(param.device)), p=p,
                                 iters=iters, variant=variant)
     update = (m_new * bc1) * inv
+    p_new = w - lr * (update + weight_decay * w)
+    return p_new.to(param.dtype), m_new, v_new
+
+
+# -- exact oracles (the benchmark's error references) ---------------------------
+
+
+def softmax_exact(x: torch.Tensor) -> torch.Tensor:
+    return torch.softmax(x.to(torch.float32), dim=-1).to(x.dtype)
+
+
+def rmsnorm_exact(x: torch.Tensor, gain: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    ms = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(ms + eps) * gain.to(torch.float32)).to(x.dtype)
+
+
+def attention_exact(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Dense GQA attention with an exact softmax; q (B, H, S, D), k/v (B, KH,
+    S, D); masked logits are -inf."""
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    qf = q.to(torch.float32).reshape(b, kh, h // kh, s, d)
+    logits = torch.einsum("bkgsd,bktd->bkgst", qf, k.to(torch.float32)) * sm_scale
+    if causal:
+        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~keep, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,bktd->bkgsd", probs, v.to(torch.float32))
+    return out.reshape(b, h, s, d).to(q.dtype)
+
+
+def adam_update_exact(param: torch.Tensor, grad: torch.Tensor, m: torch.Tensor,
+                      v: torch.Tensor, *, lr: float, beta1: float = 0.9,
+                      beta2: float = 0.999, eps: float = 1e-8,
+                      weight_decay: float = 0.0, step: int = 1):
+    """One AdamW step with a true sqrt and division; returns (param in its
+    dtype, m, v)."""
+    g32, w = grad.to(torch.float32), param.to(torch.float32)
+    m_new = beta1 * m + (1.0 - beta1) * g32
+    v_new = beta2 * v + (1.0 - beta2) * g32 * g32
+    bc1 = 1.0 / (1.0 - beta1**step)
+    bc2 = 1.0 / (1.0 - beta2**step)
+    update = (m_new * bc1) / (torch.sqrt(v_new * bc2) + eps)
     p_new = w - lr * (update + weight_decay * w)
     return p_new.to(param.dtype), m_new, v_new
 

@@ -4,7 +4,9 @@
 Layouts follow the reference: ``(b, s, H, hd)`` at this layer's functions,
 ``(B, H, S, D)`` at the kernel's.  Prefill attention runs the flash kernel
 front-end; decode attention is tensor ops around ``policy.softmax`` over
-the masked cache.  An int8 cache (the quantized serving path) is written
+the masked cache; ``flash_chunked`` is the reference's chunked
+online-softmax in tensor ops (the kernel benchmark's baseline for the
+flash rows).  An int8 cache (the quantized serving path) is written
 through ``kv_cast``, which quantizes on the static KV scale, and read
 through ``kv_dequantize``; a float cache just casts.
 """
@@ -72,6 +74,61 @@ def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             variant=policy.variant,
                             **policy.kernel_precision(q.dtype))
     return o.transpose(1, 2)
+
+
+def fit_block(s: int, target: int) -> int:
+    """Largest divisor of ``s`` that is <= ``target``."""
+    blk = min(max(int(target), 1), int(s))
+    while s % blk:
+        blk -= 1
+    return blk
+
+
+def flash_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  policy: NumericsPolicy, causal: bool = True, q_block: int = 512,
+                  kv_block: int = 1024, sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Double-chunked online-softmax attention in tensor ops (the
+    reference's ``flash_chunked`` with its default serial q blocks).
+
+    q (b, sq, H, hd), k/v (b, sk, KH, hd) -> (b, sq, H, hd) in q's dtype.
+    Each q block runs over every kv block with a running max and an
+    unnormalized sum in f32; the one normalization is
+    ``acc · policy.reciprocal(max(l, 1e-30))`` at the block's end.  Masked
+    logits take ``NEG_INF``.  Blocks are the largest divisors of the lengths
+    that fit ``q_block`` / ``kv_block``.
+    """
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(hd)
+    if causal and sq != sk:
+        raise ValueError(f"causal flash_chunked needs aligned self-attention, got {sq} vs {sk}")
+    q_block, kv_block = fit_block(sq, q_block), fit_block(sk, kv_block)
+    # scaled in q's dtype, as the reference scales before the f32 products
+    qg = (q.permute(0, 2, 3, 1) * sm_scale).to(torch.float32)  # (b, H, hd, sq)
+    kT = expand_kv_heads(k, h).permute(0, 2, 3, 1).to(torch.float32)  # (b, H, hd, sk)
+    vT = expand_kv_heads(v, h).transpose(1, 2).to(torch.float32)  # (b, H, sk, hd)
+    outs = []
+    for row0 in range(0, sq, q_block):
+        qb = qg[..., row0:row0 + q_block]
+        acc = torch.zeros(b, h, q_block, hd, dtype=torch.float32, device=q.device)
+        m = torch.full((b, h, q_block, 1), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros(b, h, q_block, 1, dtype=torch.float32, device=q.device)
+        for col0 in range(0, sk, kv_block):
+            sblk = torch.einsum("bhdq,bhdt->bhqt", qb, kT[..., col0:col0 + kv_block])
+            if causal:
+                rows = row0 + torch.arange(q_block, device=q.device)[:, None]
+                cols = col0 + torch.arange(kv_block, device=q.device)[None, :]
+                sblk = torch.where(rows >= cols, sblk, NEG_INF)
+            m_new = torch.maximum(m, torch.amax(sblk, dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            e = torch.exp(sblk - m_new)
+            l = l * alpha + torch.sum(e, dim=-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bhqt,bhtd->bhqd", e,
+                                             vT[:, :, col0:col0 + kv_block])
+            m = m_new
+        outs.append((acc * policy.reciprocal(torch.clamp_min(l, 1e-30))).to(q.dtype))
+    return torch.cat(outs, dim=2).transpose(1, 2)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

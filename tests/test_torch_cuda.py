@@ -12,12 +12,15 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.benchmarks import bench_kernels  # noqa: E402
 from repro_torch.core import formats  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_kernel  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as flash_bwd_kernel  # noqa: E402
 from repro_torch.kernels import gs_adam as adam_kernel  # noqa: E402
+from repro_torch.kernels import gs_elementwise as elementwise_kernel  # noqa: E402
 from repro_torch.kernels import gs_fixed as fixed_kernel  # noqa: E402
 from repro_torch.kernels import gs_rmsnorm as rms_kernel  # noqa: E402
+from repro_torch.kernels import gs_softmax as softmax_kernel  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch.steps import TrainHParams, lr_at, make_train_step  # noqa: E402
 from repro_torch.models import api  # noqa: E402
@@ -82,7 +85,8 @@ def test_smoke_engine_runs_the_kernels(cuda_device):
         "gs_rmsnorm": (2 * cfg.n_layers + 1) * (m.first_tokens + m.decode_ticks),
         "flash_attention": cfg.n_layers * m.first_tokens,
         "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0, "gs_adam": 0,
-        "gs_fixed_recip": 0, "gs_fixed_softmax": 0, "gs_fixed_rmsnorm": 0}
+        "gs_fixed_recip": 0, "gs_fixed_softmax": 0, "gs_fixed_rmsnorm": 0,
+        "gs_recip": 0, "gs_rsqrt": 0, "gs_softmax": 0}
     for req in reqs:
         np.testing.assert_array_equal(res[req.rid].tokens,
                                       generate_sequential(cfg, params, req).tokens)
@@ -161,7 +165,8 @@ def test_smoke_train_step_on_the_card_matches_the_cpu(cuda_device):
     assert counts == {"gs_rmsnorm": 2 * cfg.n_layers + 1, "flash_attention": cfg.n_layers,
                       "flash_attention_bwd_dq": cfg.n_layers,
                       "flash_attention_bwd_dkv": cfg.n_layers, "gs_adam": n_leaves,
-                      "gs_fixed_recip": 0, "gs_fixed_softmax": 0, "gs_fixed_rmsnorm": 0}
+                      "gs_fixed_recip": 0, "gs_fixed_softmax": 0, "gs_fixed_rmsnorm": 0,
+        "gs_recip": 0, "gs_rsqrt": 0, "gs_softmax": 0}
     _, (p_cpu, opt_cpu, met_cpu) = _smoke_step("cpu")
     assert abs(met_gpu["loss"].item() - met_cpu["loss"].item()) <= 1e-4 * met_cpu["loss"].item()
     # m and v hold the clipped gradients after one step from zeros
@@ -256,9 +261,111 @@ def test_smoke_int8_engine_runs_the_fixed_kernel(cuda_device):
         "gs_rmsnorm": 0, "flash_attention": cfg.n_layers * m.first_tokens,
         "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0, "gs_adam": 0,
         "gs_fixed_recip": 0, "gs_fixed_softmax": 0,
-        "gs_fixed_rmsnorm": (2 * cfg.n_layers + 1) * (m.first_tokens + m.decode_ticks)}
+        "gs_fixed_rmsnorm": (2 * cfg.n_layers + 1) * (m.first_tokens + m.decode_ticks),
+        "gs_recip": 0, "gs_rsqrt": 0, "gs_softmax": 0}
     again = engine.run(reqs)
     for req in reqs:
         toks = res[req.rid].tokens
         assert len(toks) == req.max_new_tokens and 0 <= toks.min() and toks.max() < cfg.vocab
         np.testing.assert_array_equal(again[req.rid].tokens, toks)
+
+
+# the (dtype, p, iters, variant) grid of tests/test_torch_kernels.py, and two
+# f32 points whose Goldschmidt error (2^-9 seed-only, 2^-14 after one pass)
+# stands far above f32 roundoff, so that an exact 1/sum in gs_softmax fails
+ELEMENTWISE_PRECISIONS = [(torch.float32, 7, 2, "feedback"), (torch.float32, 12, 1, "pipelined"),
+                          (torch.bfloat16, 8, 0, "feedback"), (torch.bfloat16, 8, 0, "pipelined"),
+                          (torch.float32, 8, 0, "feedback"), (torch.float32, 7, 1, "pipelined")]
+# ±0, the smallest subnormal, ±inf, NaN, -2, the largest and smallest normal
+SPECIALS = [0.0, -0.0, 1e-45, float("inf"), float("-inf"), float("nan"), -2.0,
+            3.4028234663852886e38, 1.1754943508222875e-38]
+
+
+def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit patterns, any NaN matching any NaN."""
+    ints = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    same = (a.view(ints) == b.view(ints)) | (torch.isnan(a) & torch.isnan(b))
+    return a.dtype == b.dtype and a.shape == b.shape and bool(same.all())
+
+
+def _elementwise_inputs(device):
+    """Signed magnitudes log-uniform over 2^-60..2^61 at three shapes, and
+    the specials."""
+    r = np.random.RandomState(0)
+    out = []
+    for shape in ((256, 128), (33, 517), (4096, 128)):
+        x = np.exp2(r.uniform(-60, 60, shape)) * (1 + r.rand(*shape))
+        out.append(torch.from_numpy(x * np.where(r.rand(*shape) < 0.5, -1, 1))
+                   .float().to(device))
+    out.append(torch.tensor(SPECIALS, device=device))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,p,iters,variant", ELEMENTWISE_PRECISIONS)
+def test_elementwise_kernels_are_bit_equal_to_plain_versions(cuda_device, dtype, p, iters,
+                                                             variant):
+    kw = dict(p=p, iters=iters, variant=variant)
+    ops.reset_launch_counts()
+    xs = _elementwise_inputs(cuda_device)
+    for x in xs:
+        x = x.to(dtype)
+        assert _bit_equal(elementwise_kernel.gs_recip(x, **kw), ref.reciprocal(x, **kw))
+        for mode in ("rsqrt", "sqrt"):
+            assert _bit_equal(elementwise_kernel.gs_rsqrt(x, mode=mode, **kw),
+                              ref.rsqrt(x, mode=mode, **kw))
+        got = elementwise_kernel.gs_rsqrt(x, mode="sqrt_both", **kw)
+        want = ref.rsqrt(x, mode="sqrt_both", **kw)
+        assert all(_bit_equal(a, b) for a, b in zip(got, want))
+    counts = ops.launch_counts()
+    assert counts["gs_recip"] == len(xs) and counts["gs_rsqrt"] == 3 * len(xs)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,p,iters,variant", ELEMENTWISE_PRECISIONS)
+def test_softmax_kernel_matches_plain_version(cuda_device, dtype, p, iters, variant):
+    """f32 within 2^-18 of the plain value (the row sum's order is the
+    kernel's own, exp is expf), bf16 within one ulp."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    kw = dict(p=p, iters=iters, variant=variant)
+    for shape in ((16, 384), (37, 200), (8, 32000)):
+        x = (4 * torch.randn(shape, generator=g, device=cuda_device)).to(dtype)
+        got, want = softmax_kernel.gs_softmax(x, **kw), ref.softmax(x, **kw)
+        assert got.dtype == dtype and got.shape == x.shape
+        if dtype == torch.float32:
+            assert ((got - want).abs() <= 2.0**-18 * want).all()
+        else:
+            assert ((got.view(torch.int16).int() - want.view(torch.int16).int()).abs() <= 1).all()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_elementwise_vjps_on_the_card_match_the_cpu(cuda_device, dtype):
+    r = np.random.RandomState(3)
+    pos = torch.from_numpy(r.uniform(0.05, 20.0, (64, 128)).astype(np.float32)).to(dtype)
+    rows = torch.from_numpy((4 * r.randn(16, 384)).astype(np.float32)).to(dtype)
+    bound = {torch.float32: 2.0**-18, torch.bfloat16: 2.0**-7}[dtype]
+    for op, x, tol in ((ops.gs_recip, pos, bound), (ops.gs_rsqrt, pos, bound),
+                       (ops.gs_sqrt, pos, bound),
+                       (ops.gs_softmax, rows, max(bound, 2.0**-12))):
+        cot = torch.from_numpy(r.randn(*x.shape).astype(np.float32)).to(dtype)
+        grads = []
+        for dev in (cuda_device, "cpu"):
+            xd = x.to(dev).requires_grad_()
+            (gd,) = torch.autograd.grad(op(xd), xd, cot.to(dev))
+            grads.append(gd.float().cpu())
+        assert (grads[0] - grads[1]).abs().max() <= tol * grads[1].abs().max()
+
+
+@pytest.mark.cuda
+def test_bench_records_on_the_card_are_ok_and_launch_each_kernel(cuda_device):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops.reset_launch_counts()
+    recs = bench_kernels.records(smoke=True, device=cuda_device)
+    counts = ops.launch_counts()
+    assert len(recs) == 42 and all(r["ok"] for r in recs), [r for r in recs if not r["ok"]]
+    launched = bench_kernels.expected_launches(recs, smoke=True)
+    assert counts == {name: launched.get(name, 0) for name in counts}
+    assert {"gs_recip", "gs_rsqrt", "gs_softmax"} <= set(launched)

@@ -1,5 +1,6 @@
-"""The port stands alone: no ``jax`` and no ``repro`` in ``src/repro_torch``
-or ``chip_smoke.py``, by source scan and at import time."""
+"""The port stands alone: no ``jax``, no ``repro`` and not the reference's
+top-level ``benchmarks`` package (it imports both) in ``src/repro_torch`` or
+``chip_smoke.py``, by source scan and at import time."""
 
 import ast
 import os
@@ -13,7 +14,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _port_files():
