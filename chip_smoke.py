@@ -6,15 +6,22 @@
 Phases, in order; any failure exits nonzero before the last line:
 
 1. Device: the card's name and power limit (``nvidia-smi``), TF32 off for
-   matmuls and cuDNN, and the CUDA kernels built from ``csrc/`` with nvcc.
+   matmuls and cuDNN, and the CUDA kernels built from ``csrc/`` with nvcc;
+   the registers and spills ``-Xptxas -v`` reports, failing on any spill
+   in the flash backward kernels or on an instance of them without
+   tensor-core (HMMA) instructions in ``cuobjdump -sass``.
 2. Kernels vs their plain PyTorch versions on the card: gs_rmsnorm at
    (rows, 2048), flash attention at (1, 32, S, 64) / (1, 4, S, 64), f32 and
    bf16, held to the reference's ERR_BOUNDS (f32 2^-15, bf16 2^-4); then at
    the training shapes: the forward's (m, l) residuals, and dq, dk, dv at
    (4, 32, S, 64) / (4, 4, S, 64), S 512 and 333, causal, f32 and bf16 (the
    ``flash_attention`` row, as max error over the plain version's largest
-   element); gs_adam on a 1.1e6-element leaf and on one of 131 x 129
-   elements (the ``gs_adam`` row, f32 2^-18).
+   element), and within 10x the plain f32 version's max |error| against the
+   plain version run in f64: at f32 dq, dk, dv (the kernels' products are
+   three TF32 tensor-core passes; a single pass keeps about 11 bits), at
+   bf16 the dk/dv kernel's f32 per-q-head dk, dv (two passes with p, ds);
+   gs_adam on a 1.1e6-element leaf and on one of 131 x 129 elements (the
+   ``gs_adam`` row, f32 2^-18).
 3. Serve full-width tinyllama-1.1b (random weights from ``--seed``):
    ``Engine.run`` over 4 slots on 8 staggered requests (prompts 45..333
    tokens, 32 generated each) at float32, token for token against
@@ -28,7 +35,10 @@ Phases, in order; any failure exits nonzero before the last line:
    backward for dq and dk/dv; ``torch.optim.AdamW(fused=True).step()``) as
    a yardstick the port never calls — per call from CUDA events over
    back-to-back calls (host launch cost included) and as device time from
-   torch.profiler — beside the least time the card could take.
+   torch.profiler — beside the least time the card could take (for the
+   flash backward, at the 3xTF32 tensor-core rate, with the fp32 FMA bound
+   beside it); the backward pair's device time over SDPA backward's, and
+   the kernels SDPA backward runs.
 5. Where a serving run's time goes: wall vs device-busy time and the top
    kernels of one short request, from torch.profiler.
 6. Train: (a) one step of a 2-layer full-width tinyllama (batch 2, seq 128,
@@ -92,6 +102,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -105,9 +118,12 @@ SRC = ROOT / "src"
 
 ERR_BOUNDS = {"float32": 2.0**-15, "bfloat16": 2.0**-4}  # benchmarks/bench_kernels.py:149
 NEAR_TIE = 1e-6  # top-2 probability gap below which a greedy flip is excused
-# H100 SXM data-sheet peaks (dense): device memory and compute by input type
+# H100 SXM data-sheet peaks (dense): device memory and compute by input type;
+# "tf32x3" is an f32-accurate product as three TF32 tensor-core passes, the
+# flash backward kernels' route
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
+ORACLE_FACTOR = 10  # flash backward vs an f64 oracle: at most 10x the plain f32 error
 PROMPTS = (97, 150, 333, 64, 211, 128, 45, 270)
 ARRIVALS = (0.0, 0.0, 0.05, 0.1, 0.15, 0.2, 0.25, 0.3)
 GEN = 32
@@ -126,6 +142,28 @@ def nvidia_smi_line() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def hmma_counts(lib: Path) -> dict:
+    """Tensor-core (HMMA) instructions in each instance of the flash backward
+    kernels, from the built library's SASS (``cuobjdump -sass``)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump: {out.stderr.strip()[-500:]}")
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        found = re.search(r"Function : \S*(flash_bwd_\w+?_kernel)I(\w+?)Li(\d+)E", line)
+        if "Function :" in line:
+            name = None
+            if found:
+                kernel, dtype, d = found.groups()
+                name = f"{kernel}<{'float' if dtype == 'f' else 'bf16'}, {d}>"
+                counts[name] = 0
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def cuda_ms(fn, n: int) -> float:
@@ -158,6 +196,17 @@ def profiled(fn):
         wall = (time.perf_counter() - t0) * 1e3
     cuda = torch.autograd.DeviceType.CUDA
     return wall, [e for e in prof.events() if e.device_type == cuda]
+
+
+def top_kernels(fn, n: int = 3):
+    """The names of the ``n`` CUDA kernels that take most of ``fn``'s device
+    time, from torch.profiler."""
+    fn()
+    _, events = profiled(fn)
+    total = {}
+    for e in events:
+        total[e.name] = total.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return sorted(total, key=total.get, reverse=True)[:n]
 
 
 def device_ms(fn, n: int):
@@ -227,6 +276,49 @@ def rel_err(got, want) -> float:
     return ((got.float() - want).abs().max() / want.abs().max()).item()
 
 
+def check_against_f64(label: str, names, got, want, oracle) -> None:
+    """Each of the kernels' outputs ``got`` and the plain version's ``want``
+    against the plain version run in f64: the kernels' max |error| at most
+    ORACLE_FACTOR x the plain version's.  Their products are TF32 passes
+    split hi/lo; a single pass on f32 data keeps about 11 bits and would
+    not be within it."""
+    for name, a, b, o in zip(names, got, want, oracle):
+        k_err = (a.double() - o).abs().max().item()
+        p_err = (b.double() - o).abs().max().item()
+        print(f"    f64 oracle {name} {label}: kernel max|err| {k_err:.3e}, plain "
+              f"f32 {p_err:.3e} (ratio {k_err / p_err:.2f}, limit {ORACLE_FACTOR})")
+        if not k_err <= ORACLE_FACTOR * p_err:
+            fail(f"flash backward {name} {label}: {k_err} against the f64 oracle, "
+                 f"plain f32 {p_err}")
+
+
+def check_bwd_against_f64(q, k, v, do, out, m, l, got, want, kw) -> None:
+    """f32 inputs: dq, dk, dv (three TF32 passes in every product)."""
+    from repro_torch.kernels import ref
+
+    oracle = ref.attention_bwd(q.double(), k.double(), v.double(), do, out, m, l, **kw)
+    check_against_f64(f"{tuple(q.shape)} float32", ("dq", "dk", "dv"), got, want, oracle)
+
+
+def check_dkv_against_f64(q, k, v, do, out, m, l, kw) -> None:
+    """bf16 inputs: the dk/dv kernel's own f32 per-q-head dk, dv, before the
+    GQA group-sum and the cast to bf16.  Its products with the f32 p and ds
+    are two TF32 passes (the bf16 operand is exact in TF32); k and v are
+    repeated per q head so that the plain version's dk, dv are per q head."""
+    from repro_torch.kernels import flash_attention_bwd as bwd_kernel
+    from repro_torch.kernels import ref
+
+    group = q.shape[1] // k.shape[1]
+    ke, ve = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    delta = torch.sum(do.float() * out.float(), dim=-1)
+    got = bwd_kernel.dkv(q, k, v, do, m, l, delta, sm_scale=1.0 / math.sqrt(q.shape[-1]),
+                         **kw)
+    want = ref.attention_bwd(q, ke.float(), ve.float(), do, out, m, l, **kw)[1:]
+    oracle = ref.attention_bwd(q.double(), ke.double(), ve.double(), do, out, m, l, **kw)[1:]
+    check_against_f64(f"{tuple(q.shape)} bfloat16, per q head", ("dk", "dv"), got, want,
+                      oracle)
+
+
 def check_training_kernels():
     """The backward and optimizer kernels at the training path's shapes;
     returns the worst max |error| of each kernel."""
@@ -264,6 +356,10 @@ def check_training_kernels():
             if not (out_err <= bound and res_err <= 1e-5 and max(errs) <= bound):
                 fail(f"flash training kernels {name} S={s}: out {out_err}, m/l {res_err}, "
                      f"grads {errs}")
+            if dtype == torch.float32:
+                check_bwd_against_f64(q, k, v, do, out, m, l, got, want, kw)
+            else:
+                check_dkv_against_f64(q, k, v, do, out, m, l, kw)
             worst["flash_attention_bwd_dq"] = max(worst["flash_attention_bwd_dq"], abs_errs[0])
             worst["flash_attention_bwd_dkv"] = max(worst["flash_attention_bwd_dkv"],
                                                    *abs_errs[1:])
@@ -510,20 +606,31 @@ def time_training_kernels():
     mm = 2 * b * h * hd * pairs  # flops of one S x S x D product over these pairs
     elt = 4
     in_bytes = (2 * b * h + 2 * b * kh) * s * hd * elt + 3 * b * h * s * 4
+    us = lambda x: "not measured" if x is None else f"{x * 1e3:.1f} us"  # noqa: E731
     for name, n_mm, out_bytes in (("dq", 3, b * h * s * hd * elt),
                                   ("dkv", 4, 2 * b * h * s * hd * 4)):
-        bound, by = bound_ms(in_bytes + out_bytes, n_mm * mm, "float32")
+        # the kernels' products run as three TF32 tensor-core passes
+        bound, by = bound_ms(in_bytes + out_bytes, n_mm * mm, "tf32x3")
+        fma_bound, _ = bound_ms(in_bytes + out_bytes, n_mm * mm, "float32")
         rows[("flash_attention_bwd_" + name, "float32")] = dict(
             ms=t[name], plain_ms=t["plain"], library_ms=t["lib"], bound_ms=bound,
             bound_by=by, device_ms=[dev_ms[name], dev_ms["plain"], dev_ms["lib"]],
             shape=f"({b}, {h}, {s}, {hd}) float32 causal")
-    pair_bound, _ = bound_ms(in_bytes + 3 * b * h * s * hd * 4, 5 * mm, "float32")
-    us = lambda x: "not measured" if x is None else f"{x * 1e3:.1f} us"  # noqa: E731
+        print(f"  flash_attention_bwd_{name}: bound {bound * 1e3:.2f} us ({by}, 3xTF32 "
+              f"tensor cores at 495/3 TFLOP/s), {fma_bound * 1e3:.2f} us on the fp32 FMA "
+              f"pipes (67 TFLOP/s); kernel {us(dev_ms[name])} device time")
+    pair_bound, _ = bound_ms(in_bytes + 3 * b * h * s * hd * 4, 5 * mm, "tf32x3")
     print(f"  flash forward with residuals ({b}, {h}, {s}, {hd}) f32: {us(t['fwd'])} per "
           f"call, device time {us(dev_ms['fwd'])}")
     print(f"  flash backward pair (dq + dk/dv) {(t['dq'] + t['dkv']) * 1e3:.1f} us against "
-          f"the pair's bound {pair_bound * 1e3:.2f} us (2.5x the forward's matmul flops); "
-          f"SDPA backward {t['lib'] * 1e3:.1f} us (it computes dq, dk and dv in one call)")
+          f"the backward's 3xTF32 bound {pair_bound * 1e3:.2f} us (2.5x the forward's "
+          f"matmul flops); SDPA backward {t['lib'] * 1e3:.1f} us (it computes dq, dk and dv "
+          f"in one call)")
+    if None not in (dev_ms["dq"], dev_ms["dkv"], dev_ms["lib"]):
+        print(f"  flash backward pair / SDPA backward, device time: "
+              f"{(dev_ms['dq'] + dev_ms['dkv']) / dev_ms['lib']:.3f} "
+              f"({us(dev_ms['dq'] + dev_ms['dkv'])} / {us(dev_ms['lib'])})")
+    print(f"  SDPA backward's kernels by device time: {top_kernels(lib)}")
 
     n = 32000 * 2048
     w, grad = (torch.randn(n, generator=g, device=dev) for _ in range(2))
@@ -1387,10 +1494,27 @@ def main() -> None:
     build.load()
     print(f"  built {lib.name} from {[s.name for s in build.sources()]} in "
           f"{time.perf_counter() - t0:.1f} s")
-    log = build.BUILD_DIR / "build.log"
-    for line in (log.read_text().splitlines() if log.exists() else []):
+    log = build.report_path(lib)
+    if not log.exists():
+        fail(f"no compiler report {log.name} beside {lib.name}")
+    entry, bwd_reported = "", set()
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line
         if "registers" in line or "spill" in line:
             print("   ", line.strip())
+        if "flash_bwd" in entry and "spill" in line:
+            bwd_reported.add(entry)
+            if any(int(n) for n in re.findall(r"(\d+) bytes spill", line)):
+                fail(f"the flash backward kernels spill: {entry.strip()}: {line.strip()}")
+    hmma = hmma_counts(lib)
+    print(f"  HMMA (tensor-core) instructions per flash backward kernel: {hmma}; spill "
+          f"reports read for {len(bwd_reported)} of their instances in {log.name}")
+    if len(hmma) != 12 or not all(hmma.values()):
+        fail(f"the flash backward kernels must run on the tensor cores: {hmma}")
+    if len(bwd_reported) != len(hmma):
+        fail(f"{log.name} reports spills for {len(bwd_reported)} flash backward instances, "
+             f"not {len(hmma)}")
 
     print("== 2. kernels vs plain versions")
     worst = check_kernels()

@@ -85,14 +85,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgs_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def report_path(lib: Path) -> Path:
+    """The ``-Xptxas -v`` report of the build that made ``lib``."""
+    return lib.with_suffix(".log")
+
+
 def build() -> Path:
     """Compile and link the library unless it is already built; returns it.
 
-    The compiler's register and spill report goes to ``build.log`` beside
-    the library.
+    The compiler's register and spill report goes beside the library under
+    the same digest name (:func:`report_path`); a library without its
+    report is built again.
     """
     lib = library_path()
-    if lib.exists():
+    if lib.exists() and report_path(lib).exists():
         return lib
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -113,7 +119,7 @@ def build() -> Path:
                               capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
-        (BUILD_DIR / "build.log").write_text("".join(logs))
+        report_path(lib).write_text("".join(logs))
         os.replace(tmp_lib, lib)
     return lib
 

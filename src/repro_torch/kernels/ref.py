@@ -119,10 +119,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _masked_logits(qf: torch.Tensor, kf: torch.Tensor, sm_scale: float,
-                   causal: bool) -> torch.Tensor:
+                   causal: bool, product=torch.einsum) -> torch.Tensor:
     """``sm_scale · q kᵀ`` per GQA group, (b, kh, g, s, s); masked entries
     take ``NEG_INF``."""
-    logits = torch.einsum("bkgsd,bktd->bkgst", qf, kf) * sm_scale
+    logits = product("bkgsd,bktd->bkgst", qf, kf) * sm_scale
     if causal:
         s = qf.shape[-2]
         keep = torch.ones(s, s, dtype=torch.bool, device=qf.device).tril()
@@ -134,7 +134,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do: torch.Tensor, out: torch.Tensor, m: torch.Tensor,
                   l: torch.Tensor, *, causal: bool = True,
                   sm_scale: Optional[float] = None, p: int, iters: int,
-                  variant: str):
+                  variant: str, product=torch.einsum):
     """(dq, dk, dv) of :func:`attention` from its output and residuals,
     written out as the kernels compute it:
 
@@ -142,26 +142,63 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ds_ij = p_ij · (do_i·v_j - Δ_i) · sm_scale,  Δ_i = do_i·out_i
         dq = ds k,  dv = Σ_group pᵀ do,  dk = Σ_group dsᵀ q
 
-    dq in q's dtype; dk, dv summed over each GQA group in f32, then cast."""
+    dq in q's dtype; dk, dv summed over each GQA group, then cast.  f32
+    inside, f64 for f64 q, k, v (an oracle for the products; m, l and the
+    Goldschmidt 1/l stay f32).  Every product is ``product(equation, a,
+    b)``, with p or ds as ``a``: :func:`split_matmul` there emulates the
+    kernels' TF32 passes."""
     b, h, s, d = q.shape
     kh = k.shape[1]
     g = h // kh
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    qf = q.to(torch.float32).reshape(b, kh, g, s, d)
-    kf, vf = k.to(torch.float32), v.to(torch.float32)
-    dof = do.to(q.dtype).to(torch.float32).reshape(b, kh, g, s, d)
-    delta = torch.sum(dof * out.to(torch.float32).reshape(b, kh, g, s, d), dim=-1)
+    work = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf = q.to(work).reshape(b, kh, g, s, d)
+    kf, vf = k.to(work), v.to(work)
+    dof = do.to(q.dtype).to(work).reshape(b, kh, g, s, d)
+    delta = torch.sum(dof * out.to(work).reshape(b, kh, g, s, d), dim=-1)
     inv = common.recip_positive(l.clamp_min(1e-30), rom("recip", p, str(q.device)),
-                                p=p, iters=iters, variant=variant)
-    logits = _masked_logits(qf, kf, sm_scale, causal)
-    pt = torch.exp(logits - m.reshape(b, kh, g, s, 1)) * inv.reshape(b, kh, g, s, 1)
-    dp = torch.einsum("bkgsd,bktd->bkgst", dof, vf)
+                                p=p, iters=iters, variant=variant).to(work)
+    logits = _masked_logits(qf, kf, sm_scale, causal, product)
+    pt = torch.exp(logits - m.to(work).reshape(b, kh, g, s, 1)) * inv.reshape(b, kh, g, s, 1)
+    dp = product("bkgsd,bktd->bkgst", dof, vf)
     ds = pt * (dp - delta[..., None]) * sm_scale
-    dq = torch.einsum("bkgst,bktd->bkgsd", ds, kf).reshape(b, h, s, d).to(q.dtype)
-    dv = torch.einsum("bkgst,bkgsd->bktd", pt, dof).to(v.dtype)
-    dk = torch.einsum("bkgst,bkgsd->bktd", ds, qf).to(k.dtype)
+    dq = product("bkgst,bktd->bkgsd", ds, kf).reshape(b, h, s, d).to(q.dtype)
+    dv = product("bkgst,bkgsd->bktd", pt, dof).to(v.dtype)
+    dk = product("bkgst,bkgsd->bktd", ds, qf).to(k.dtype)
     return dq, dk, dv
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: to the
+    nearest value with 10 fraction bits, ties away from zero.  On the f32
+    word by integer ops: half of the 13 dropped bits' range is added to the
+    magnitude (a carry runs into the exponent, the largest finite values
+    round to inf) and the 13 bits are cleared; inf and NaN pass unchanged."""
+    bits = x.to(torch.float32).view(torch.int32)
+    rounded = (bits + 0x1000) & ~0x1FFF
+    special = (bits & 0x7F800000) == 0x7F800000
+    return torch.where(special, bits, rounded).view(torch.float32)
+
+
+def split_matmul(a: torch.Tensor, b: torch.Tensor, passes: int,
+                 equation: str = "...ij,...jk->...ik") -> torch.Tensor:
+    """The kernels' product of f32 ``a`` and ``b`` on TF32 tensor cores,
+    contracted by ``equation``.  Each operand splits into hi =
+    ``tf32_round(x)`` and lo = ``tf32_round(x - hi)``; the passes, small
+    terms first, are 3: a_lo·b_hi + a_hi·b_lo + a_hi·b_hi; 2: a_lo·b_hi +
+    a_hi·b_hi (b exact in TF32, as bf16 values are); 1: a_hi·b_hi.  Each
+    pass is an f32 product of TF32 values."""
+    if passes not in (1, 2, 3):
+        raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    big = torch.einsum(equation, a_hi, b_hi)
+    if passes == 1:
+        return big
+    small = torch.einsum(equation, tf32_round(a - a_hi), b_hi)
+    if passes == 3:
+        small = small + torch.einsum(equation, a_hi, tf32_round(b - b_hi))
+    return small + big
 
 
 def adam_update(param: torch.Tensor, grad: torch.Tensor, m: torch.Tensor,

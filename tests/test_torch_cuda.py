@@ -5,6 +5,8 @@ kernels have no CPU mode).  The file imports no JAX, so it also runs on a
 GPU machine without it: ``python -m pytest tests/test_torch_cuda.py -q``.
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -98,12 +100,18 @@ def _err(got, want) -> float:
     return ((got.float() - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
+# (S, H, KH, D, causal): ragged and whole 64-row tiles (S 512 runs eight
+# and the diagonal), D 64/32/16, GQA groups 1, 2, 4 and 8, causal and not
+FLASH_BWD_SHAPES = ((97, 32, 4, 64, True), (128, 8, 2, 32, False), (11, 4, 2, 16, True),
+                    (70, 4, 4, 16, False), (512, 8, 1, 64, True), (512, 4, 4, 64, False),
+                    (333, 8, 8, 32, True), (333, 8, 1, 16, False), (512, 4, 2, 16, True))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_backward_kernels_match_plain_versions(cuda_device, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(1)
-    for s, h, kh, hd, causal in ((97, 32, 4, 64, True), (128, 8, 2, 32, False),
-                                 (11, 4, 2, 16, True), (70, 4, 4, 16, False)):
+    for s, h, kh, hd, causal in FLASH_BWD_SHAPES:
         q, do = (torch.randn(2, h, s, hd, generator=g, device=cuda_device).to(dtype)
                  for _ in range(2))
         k, v = (torch.randn(2, kh, s, hd, generator=g, device=cuda_device).to(dtype)
@@ -120,6 +128,59 @@ def test_flash_backward_kernels_match_plain_versions(cuda_device, dtype):
             for a, b in zip(got, want):
                 assert a.dtype == b.dtype and a.shape == b.shape
                 assert _err(a, b) <= BOUND[dtype]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,h,kh,hd,causal", [(512, 8, 1, 64, True), (333, 8, 8, 32, True),
+                                             (128, 8, 2, 32, False), (70, 4, 4, 16, False)])
+def test_flash_backward_kernels_match_an_f64_oracle(cuda_device, s, h, kh, hd, causal):
+    """The kernels' products are three TF32 passes: dq, dk, dv within 10x the
+    plain f32 version's max error against the plain version run in f64 (a
+    single TF32 pass, about 11 bits, would not be)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, do = (torch.randn(2, h, s, hd, generator=g, device=cuda_device) for _ in range(2))
+    k, v = (torch.randn(2, kh, s, hd, generator=g, device=cuda_device) for _ in range(2))
+    kw = dict(causal=causal, p=7, iters=2, variant="feedback")
+    out, m, l = flash_kernel.flash_attention(q, k, v, residuals=True, **kw)
+    got = flash_bwd_kernel.flash_attention_bwd(q, k, v, do, out, m, l, **kw)
+    want = ref.attention_bwd(q, k, v, do, out, m, l, **kw)
+    oracle = ref.attention_bwd(q.double(), k.double(), v.double(), do, out, m, l, **kw)
+    for a, b, o in zip(got, want, oracle):
+        err = (a.double() - o).abs().max().item()
+        assert err <= 10 * (b.double() - o).abs().max().item()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,h,kh,hd,causal", [(512, 8, 1, 64, True), (333, 8, 8, 32, True),
+                                             (128, 8, 2, 32, False), (70, 4, 4, 16, False)])
+def test_flash_backward_dkv_kernel_matches_an_f64_oracle_at_bf16(cuda_device, s, h, kh, hd,
+                                                                 causal):
+    """At bf16 the products with the f32 p and ds are two TF32 passes: the
+    dk/dv kernel's own f32 per-q-head dk, dv (before the group-sum and the
+    cast) within 10x the plain f32 version's max error against the plain
+    version run in f64.  k and v are repeated per q head, so that the plain
+    version's dk, dv are per q head too."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, do = (torch.randn(2, h, s, hd, generator=g, device=cuda_device).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(2, kh, s, hd, generator=g, device=cuda_device).bfloat16()
+            for _ in range(2))
+    kw = dict(causal=causal, p=8, iters=0, variant="feedback")
+    out, m, l = flash_kernel.flash_attention(q, k, v, residuals=True, **kw)
+    delta = torch.sum(do.float() * out.float(), dim=-1)
+    got = flash_bwd_kernel.dkv(q, k, v, do, m, l, delta, sm_scale=1.0 / math.sqrt(hd),
+                                **kw)
+    ke, ve = (t.repeat_interleave(h // kh, dim=1) for t in (k, v))
+    want = ref.attention_bwd(q, ke.float(), ve.float(), do, out, m, l, **kw)[1:]
+    oracle = ref.attention_bwd(q.double(), ke.double(), ve.double(), do, out, m, l, **kw)[1:]
+    for a, b, o in zip(got, want, oracle):
+        assert a.dtype == torch.float32 and a.shape == o.shape
+        err = (a.double() - o).abs().max().item()
+        assert err <= 10 * (b.double() - o).abs().max().item()
     torch.cuda.synchronize()
 
 
