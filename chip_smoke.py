@@ -8,11 +8,14 @@ Phases, in order; any failure exits nonzero before the last line:
 1. Device: the card's name and power limit (``nvidia-smi``), TF32 off for
    matmuls and cuDNN, and the CUDA kernels built from ``csrc/`` with nvcc;
    the registers and spills ``-Xptxas -v`` reports, failing on any spill
-   in the flash backward kernels or on an instance of them without
-   tensor-core (HMMA) instructions in ``cuobjdump -sass``.
+   in the flash kernels (forward, dq, dk/dv) or on an instance of them
+   without tensor-core (HMMA) instructions in ``cuobjdump -sass``.
 2. Kernels vs their plain PyTorch versions on the card: gs_rmsnorm at
    (rows, 2048), flash attention at (1, 32, S, 64) / (1, 4, S, 64), f32 and
-   bf16, held to the reference's ERR_BOUNDS (f32 2^-15, bf16 2^-4); then at
+   bf16, held to the reference's ERR_BOUNDS (f32 2^-15, bf16 2^-4), and at
+   f32, S 333 and 512, within 10x the plain f32 version's max |error|
+   against the plain version run in f64 (the forward's products are three
+   TF32 tensor-core passes); then at
    the training shapes: the forward's (m, l) residuals, and dq, dk, dv at
    (4, 32, S, 64) / (4, 4, S, 64), S 512 and 333, causal, f32 and bf16 (the
    ``flash_attention`` row, as max error over the plain version's largest
@@ -36,9 +39,10 @@ Phases, in order; any failure exits nonzero before the last line:
    a yardstick the port never calls — per call from CUDA events over
    back-to-back calls (host launch cost included) and as device time from
    torch.profiler — beside the least time the card could take (for the
-   flash backward, at the 3xTF32 tensor-core rate, with the fp32 FMA bound
-   beside it); the backward pair's device time over SDPA backward's, and
-   the kernels SDPA backward runs.
+   flash kernels at f32, at the 3xTF32 tensor-core rate, with the fp32 FMA
+   bound beside it); the forward's device time over SDPA forward's at
+   (1, 32, 333, 64) and, with residuals, at (4, 32, 512, 64); the backward
+   pair's over SDPA backward's, and the kernels SDPA backward runs.
 5. Where a serving run's time goes: wall vs device-busy time and the top
    kernels of one short request, from torch.profiler.
 6. Train: (a) one step of a 2-layer full-width tinyllama (batch 2, seq 128,
@@ -64,12 +68,17 @@ Phases, in order; any failure exits nonzero before the last line:
    recip and rmsnorm bit-equal, all three within 2 x the format's error
    bound of an f64 oracle (the bench's gate); (b) a 2-layer full-width cut
    on the card and on the CPU, teacher-forced with the CPU's tokens through
-   a prefill and 8 decode steps: logits within 2 x the int8 format's bound
-   (2^-7) of the largest |logit| at every step; (c) ``Engine.run`` on phase
-   3's trace: valid tokens, exact launch counts, resident int8 params below
-   0.3 x the f32 tree, params + KV cache within 0.55 x the analytic bf16
-   pair (``benchmarks/bench_serve.py``'s QUANT_BYTES_BUDGET), the same
-   tokens on a second run; TTFT, tok/s, peak memory and the share of phase
+   a prefill and 8 decode steps, the int8 codes each of the 5 norms is
+   given recorded at every step: (i) every card code within 1 of the
+   CPU's, (ii) at most 2% of them differing, (iii) logits within 4 x the
+   int8 format's bound (2^-8) of the largest |logit| at every step (a
+   one-ulp difference in one element can move a norm's scale and flip the
+   codes at rounding boundaries by 1; a fault moves more, or by more);
+   (c) ``Engine.run`` on phase 3's trace: valid tokens, exact launch
+   counts, resident int8 params below 0.3 x the f32 tree, params + KV
+   cache within 0.55 x the analytic bf16 pair
+   (``benchmarks/bench_serve.py``'s QUANT_BYTES_BUDGET), the same tokens on
+   a second run; TTFT, tok/s, peak memory and the share of phase
    3's f32 tokens matched as a prefix (printed, not gated), and phase 5's
    profile of one request through the int8 engine; (d) the three
    kernels timed at the path's shapes beside their plain versions and a
@@ -145,8 +154,9 @@ def nvidia_smi_line() -> str:
 
 
 def hmma_counts(lib: Path) -> dict:
-    """Tensor-core (HMMA) instructions in each instance of the flash backward
-    kernels, from the built library's SASS (``cuobjdump -sass``)."""
+    """Tensor-core (HMMA) instructions in each instance of the flash kernels
+    (the forward, dq and dk/dv), from the built library's SASS (``cuobjdump
+    -sass``)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                          timeout=300)
@@ -154,7 +164,8 @@ def hmma_counts(lib: Path) -> dict:
         fail(f"cuobjdump: {out.stderr.strip()[-500:]}")
     counts, name = {}, None
     for line in out.stdout.splitlines():
-        found = re.search(r"Function : \S*(flash_bwd_\w+?_kernel)I(\w+?)Li(\d+)E", line)
+        found = re.search(r"Function : \S*(flash_(?:fwd|bwd_\w+?)_kernel)I(\w+?)Li(\d+)E",
+                          line)
         if "Function :" in line:
             name = None
             if found:
@@ -259,13 +270,19 @@ def check_kernels():
             k, v = (torch.randn(1, 4, s, 64, generator=g, device=dev).to(dtype)
                     for _ in range(2))
             kw = dict(causal=True, p=p, iters=iters, variant="feedback")
-            err = (flash_kernel.flash_attention(q, k, v, **kw).float()
-                   - ref.attention(q, k, v, **kw).float()).abs().max().item()
+            got = flash_kernel.flash_attention(q, k, v, **kw)
+            want = ref.attention(q, k, v, **kw)
+            err = (got.float() - want.float()).abs().max().item()
             print(f"  flash_attention {name} (1, 32, {s}, 64) causal p={p} "
                   f"iters={iters}: max|err| {err:.3e} (bound {bound:.3e})")
             if not err <= bound:
                 fail(f"flash_attention {name} S={s}: {err}")
             worst["flash_attention"] = max(worst["flash_attention"], err)
+            if dtype == torch.float32 and s in (333, 512):
+                # the forward's products are three TF32 passes
+                oracle = ref.attention(q.double(), k.double(), v.double(), **kw)
+                check_against_f64(f"{tuple(q.shape)} float32", ("out",), (got,), (want,),
+                                  (oracle,))
     torch.cuda.synchronize()
     return worst
 
@@ -277,18 +294,18 @@ def rel_err(got, want) -> float:
 
 
 def check_against_f64(label: str, names, got, want, oracle) -> None:
-    """Each of the kernels' outputs ``got`` and the plain version's ``want``
-    against the plain version run in f64: the kernels' max |error| at most
-    ORACLE_FACTOR x the plain version's.  Their products are TF32 passes
-    split hi/lo; a single pass on f32 data keeps about 11 bits and would
-    not be within it."""
+    """Each of the flash kernels' outputs ``got`` and the plain version's
+    ``want`` against the plain version run in f64: the kernels' max |error|
+    at most ORACLE_FACTOR x the plain version's.  Their products are TF32
+    passes split hi/lo; a single pass on f32 data keeps about 11 bits and
+    would not be within it."""
     for name, a, b, o in zip(names, got, want, oracle):
         k_err = (a.double() - o).abs().max().item()
         p_err = (b.double() - o).abs().max().item()
         print(f"    f64 oracle {name} {label}: kernel max|err| {k_err:.3e}, plain "
               f"f32 {p_err:.3e} (ratio {k_err / p_err:.2f}, limit {ORACLE_FACTOR})")
         if not k_err <= ORACLE_FACTOR * p_err:
-            fail(f"flash backward {name} {label}: {k_err} against the f64 oracle, "
+            fail(f"flash {name} {label}: {k_err} against the f64 oracle, "
                  f"plain f32 {p_err}")
 
 
@@ -553,11 +570,14 @@ def time_kernels():
             lambda: ref.attention(q, k, v, **kw),
             lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True))]
         pairs = s * (s + 1) // 2  # causal (query, key) pairs this input needs
-        elt = q.element_size()
-        b, by = bound_ms((2 * h + 2 * kh) * s * hd * elt, 4 * h * hd * pairs, name)
+        nbytes, flops = (2 * h + 2 * kh) * s * hd * q.element_size(), 4 * h * hd * pairs
+        # f32: the kernel's products run as three TF32 tensor-core passes
+        b, by = bound_ms(nbytes, flops, "tf32x3" if name == "float32" else name)
         rows[("flash_attention", name)] = dict(ms=t, plain_ms=t_plain, library_ms=t_lib,
                                                bound_ms=b, bound_by=by, device_ms=dev_ms,
                                                shape=f"(1, {h}, {s}, {hd}) {name}")
+        flash_vs_sdpa(f"(1, {h}, {s}, {hd}) {name}", nbytes, flops, name, dev_ms[0],
+                      dev_ms[2])
     us = lambda v: "not measured" if v is None else f"{v * 1e3:.1f} us"  # noqa: E731
     for (kname, label), r in rows.items():
         print(f"  {kname} {label} {r['shape']}: per call (CUDA events, back to back) "
@@ -568,10 +588,29 @@ def time_kernels():
     return rows
 
 
+def flash_vs_sdpa(label: str, nbytes: float, flops: float, dtype: str, kernel_ms,
+                  sdpa_ms) -> None:
+    """The flash forward's bounds (3xTF32 tensor cores and fp32 FMA pipes at
+    f32, the bf16 tensor-core rate at bf16) and its device time over SDPA's."""
+    us = lambda x: "not measured" if x is None else f"{x * 1e3:.1f} us"  # noqa: E731
+    if dtype == "float32":
+        tc, by = bound_ms(nbytes, flops, "tf32x3")
+        fma, _ = bound_ms(nbytes, flops, "float32")
+        bounds = (f"bound {tc * 1e3:.2f} us ({by}, 3xTF32 tensor cores at 495/3 TFLOP/s), "
+                  f"{fma * 1e3:.2f} us on the fp32 FMA pipes (67 TFLOP/s)")
+    else:
+        tc, by = bound_ms(nbytes, flops, dtype)
+        bounds = f"bound {tc * 1e3:.2f} us ({by}, bf16 tensor cores at 989 TFLOP/s)"
+    ratio = "not measured" if None in (kernel_ms, sdpa_ms) else f"{kernel_ms / sdpa_ms:.3f}"
+    print(f"  flash forward {label}: {bounds}; device time {us(kernel_ms)}, SDPA forward "
+          f"{us(sdpa_ms)}, flash / SDPA {ratio}")
+
+
 def time_training_kernels():
     """The training path's kernels at its full-width shapes: the flash
-    backward at (4, 32, 512, 64) / (4, 4, 512, 64) f32, causal, and gs_adam
-    on the embedding leaf (32000 x 2048)."""
+    backward, and the forward with residuals beside SDPA forward, at
+    (4, 32, 512, 64) / (4, 4, 512, 64) f32, causal, and gs_adam on the
+    embedding leaf (32000 x 2048)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as flash_kernel
@@ -597,11 +636,14 @@ def time_training_kernels():
     sdpa_out = F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
     lib = lambda: torch.autograd.grad(sdpa_out, (qe, ke, ve), do, retain_graph=True)  # noqa: E731
     fwd = lambda: flash_kernel.flash_attention(q, k, v, residuals=True, **kw)  # noqa: E731
+    sdpa_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, ke.detach(), ve.detach(), is_causal=True)
     t = {name: cuda_ms(fn, n) for name, fn, n in (
         ("dq", dq_call, 10), ("dkv", dkv_call, 10), ("plain", plain, 3), ("lib", lib, 10),
-        ("fwd", fwd, 10))}
+        ("fwd", fwd, 10), ("sdpa_fwd", sdpa_fwd, 10))}
     dev_ms = {name: device_ms(fn, 5) for name, fn in (
-        ("dq", dq_call), ("dkv", dkv_call), ("plain", plain), ("lib", lib), ("fwd", fwd))}
+        ("dq", dq_call), ("dkv", dkv_call), ("plain", plain), ("lib", lib), ("fwd", fwd),
+        ("sdpa_fwd", sdpa_fwd))}
     pairs = s * (s + 1) // 2  # causal (query, key) pairs this input needs
     mm = 2 * b * h * hd * pairs  # flops of one S x S x D product over these pairs
     elt = 4
@@ -621,7 +663,10 @@ def time_training_kernels():
               f"pipes (67 TFLOP/s); kernel {us(dev_ms[name])} device time")
     pair_bound, _ = bound_ms(in_bytes + 3 * b * h * s * hd * 4, 5 * mm, "tf32x3")
     print(f"  flash forward with residuals ({b}, {h}, {s}, {hd}) f32: {us(t['fwd'])} per "
-          f"call, device time {us(dev_ms['fwd'])}")
+          f"call, SDPA forward {us(t['sdpa_fwd'])} per call")
+    flash_vs_sdpa(f"with residuals ({b}, {h}, {s}, {hd}) float32",
+                  (2 * b * h + 2 * b * kh) * s * hd * elt + 2 * b * h * s * 4, 2 * mm,
+                  "float32", dev_ms["fwd"], dev_ms["sdpa_fwd"])
     print(f"  flash backward pair (dq + dk/dv) {(t['dq'] + t['dkv']) * 1e3:.1f} us against "
           f"the backward's 3xTF32 bound {pair_bound * 1e3:.2f} us (2.5x the forward's "
           f"matmul flops); SDPA backward {t['lib'] * 1e3:.1f} us (it computes dq, dk and dv "
@@ -1014,51 +1059,124 @@ def check_fixed_kernels():
     return worst
 
 
-def int8_card_vs_cpu(seed: int, steps: int = 8, prompt_len: int = 97):
-    """(b) a 2-layer full-width int8 cut, teacher-forced: the same prompt and
-    the CPU's greedy tokens through both devices."""
+# Phase 7b's gates on the card's run against the CPU's.  Each norm of the
+# int8 path quantizes its whole input by one amax, so a last-ulp difference
+# in the largest element (another summation order, a tensor-core product)
+# can move the scale, and every code sitting at a rounding boundary then
+# moves by exactly 1: a rounding tie moves few codes by 1, an arithmetic
+# fault moves codes by 2 or more, or many of them.
+INT8_CODE_STEP = 1  # (a) largest |card code - CPU code| at any norm input
+INT8_CODE_SHARE = 0.02  # (b) share of the norm-input codes that differ
+INT8_GAP_MARGIN = 4.0  # (c) worst-step logits gap, in units of the format's 2^-8
+
+
+def int8_cut(seed: int, prompt_len: int = 97):
+    """The 2-layer full-width tinyllama-1.1b int8 cut of 7b: (cfg, f32 params
+    on the CPU from ``seed``, the prompt)."""
     import dataclasses
 
     from repro_torch import configs
-    from repro_torch.launch.steps import make_decode_step, make_prefill_step
-    from repro_torch.layers.quant import quantize_params
     from repro_torch.models import api
-    from repro_torch.serving import SlotCachePool
-    from repro_torch.serving.sampler import sample_greedy
-    from repro_torch.tree import tree_map
 
     cfg = dataclasses.replace(configs.get_config("tinyllama-1.1b", dtype="float32"),
                               n_layers=2, quant="int8")
     host = api.init(cfg, seed=seed, device="cpu")
-    prompt = np.random.RandomState(seed).randint(0, cfg.vocab, (prompt_len,))
-    policy = cfg.policy()
-    logits, tokens = {}, []  # tokens: the CPU's greedy choices, fed to both
-    for dev in ("cpu", "cuda"):
+    return cfg, host, np.random.RandomState(seed).randint(0, cfg.vocab, (prompt_len,))
+
+
+def int8_trajectory(cfg, host, prompt, steps: int, dev: str, tokens: list):
+    """A prefill of ``prompt`` and ``steps`` teacher-forced decode steps of the
+    int8 model ``host`` on ``dev``.  ``tokens`` are fed in turn; where it
+    runs short, this run's greedy choice is appended and fed.  Returns the
+    last position's logits after each step and the int8 codes each norm
+    was given, in call order (``ops.gs_fixed_rmsnorm`` wrapped for the run,
+    the real function called unchanged)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.layers.quant import quantize_params
+    from repro_torch.serving import SlotCachePool
+    from repro_torch.serving.sampler import sample_greedy
+    from repro_torch.tree import tree_map
+
+    codes, real = [], ops.gs_fixed_rmsnorm
+
+    def recording(x, *a, **kw):
+        codes.append(x.cpu())
+        return real(x, *a, **kw)
+
+    ops.gs_fixed_rmsnorm = recording
+    try:
         params = quantize_params(tree_map(lambda t: t.to(dev), host))
         prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
         lg, states, _ = prefill(params, {"tokens": torch.as_tensor(prompt[None], device=dev)})
-        cache = SlotCachePool.grow(cfg, states, prompt_len + steps, torch.float32, dev)
-        logits[dev] = [lg[0, -1].cpu()]
+        cache = SlotCachePool.grow(cfg, states, len(prompt) + steps, torch.float32, dev)
+        logits = [lg[0, -1].cpu()]
         for i in range(steps):
-            if dev == "cpu":
-                tokens.append(int(sample_greedy(logits["cpu"][i][None], policy=policy)[0]))
-            lg, cache = decode(params, cache, torch.tensor([prompt_len + i], device=dev),
+            if len(tokens) <= i:
+                tokens.append(int(sample_greedy(logits[i][None], policy=cfg.policy())[0]))
+            lg, cache = decode(params, cache, torch.tensor([len(prompt) + i], device=dev),
                                {"token": torch.tensor([[tokens[i]]], device=dev)})
-            logits[dev].append(lg[0, -1].cpu())
-        del params, cache
-    bound = FIXED_MARGIN * policy.fmt.error_bound()
-    worst = 0.0
-    for i, (a, b) in enumerate(zip(logits["cuda"], logits["cpu"])):
-        err = ((a - b).abs().max() / b.abs().max()).item()
-        worst = max(worst, err)
-        if not err <= bound:
-            fail(f"int8 card vs CPU, step {i}: logits differ by {err:.3e} of the largest "
-                 f"(bound {bound:.3e})")
+            logits.append(lg[0, -1].cpu())
+    finally:
+        ops.gs_fixed_rmsnorm = real
+    return logits, codes
+
+
+def int8_gate_stats(logits, codes, ref_logits, ref_codes) -> dict:
+    """One run against a reference run of the same cut: each step's logits
+    gap (max |diff| over the reference's largest |logit|), and how many of
+    the norm-input codes differ and by how much at most."""
+    if len(codes) != len(ref_codes) or len(logits) != len(ref_logits):
+        fail(f"int8 runs differ in shape: {len(codes)} / {len(ref_codes)} norm calls, "
+             f"{len(logits)} / {len(ref_logits)} steps")
+    gaps = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(logits, ref_logits)]
+    diffs = [(a.int() - b.int()).abs() for a, b in zip(codes, ref_codes)]
+    n_codes = sum(d.numel() for d in diffs)
+    n_differ = sum(int((d != 0).sum()) for d in diffs)
+    return {"gaps": gaps, "worst_gap": max(gaps), "n_codes": n_codes, "n_differ": n_differ,
+            "share": n_differ / n_codes, "max_code_diff": max(int(d.max()) for d in diffs),
+            "norm_calls": len(codes)}
+
+
+def int8_gate(logits, codes, ref_logits, ref_codes, unit: float) -> dict:
+    """7b's three gates on ``logits``/``codes`` against the reference run's,
+    each fatal: (a) every code within INT8_CODE_STEP of the reference's,
+    (b) at most INT8_CODE_SHARE of them differ, (c) the worst-step logits
+    gap at most INT8_GAP_MARGIN x ``unit`` (the format's error bound).
+    Returns the statistics."""
+    st = int8_gate_stats(logits, codes, ref_logits, ref_codes)
+    bound = INT8_GAP_MARGIN * unit
+    print(f"    logits gap by step: {', '.join(f'{g:.3e}' for g in st['gaps'])}")
+    print(f"    norm-input codes: {st['n_differ']} of {st['n_codes']} differ "
+          f"({100 * st['share']:.3f}%, gate {100 * INT8_CODE_SHARE:.0f}%) over "
+          f"{st['norm_calls']} norm calls, by at most {st['max_code_diff']} "
+          f"(gate {INT8_CODE_STEP}); worst-step gap {st['worst_gap']:.3e} (gate "
+          f"{INT8_GAP_MARGIN:.0f} x {unit:.3e} = {bound:.3e})")
+    if not st["max_code_diff"] <= INT8_CODE_STEP:
+        fail(f"int8 card vs CPU: a norm-input code differs by {st['max_code_diff']} "
+             f"(gate {INT8_CODE_STEP})")
+    if not st["share"] <= INT8_CODE_SHARE:
+        fail(f"int8 card vs CPU: {st['n_differ']} of {st['n_codes']} norm-input codes "
+             f"differ ({st['share']:.4%}, gate {INT8_CODE_SHARE:.0%})")
+    if not st["worst_gap"] <= bound:
+        step = int(np.argmax(st["gaps"]))
+        fail(f"int8 card vs CPU, step {step}: logits differ by {st['worst_gap']:.3e} of the "
+             f"largest (gate {bound:.3e})")
+    return st
+
+
+def int8_card_vs_cpu(seed: int, steps: int = 8, prompt_len: int = 97):
+    """(b) a 2-layer full-width int8 cut, teacher-forced: the same prompt and
+    the CPU's greedy tokens through both devices, held by ``int8_gate``."""
+    cfg, host, prompt = int8_cut(seed, prompt_len)
+    tokens = []  # the CPU's greedy choices, fed to both
+    cpu = int8_trajectory(cfg, host, prompt, steps, "cpu", tokens)
+    card = int8_trajectory(cfg, host, prompt, steps, "cuda", tokens)
     print(f"  2-layer full-width int8, prompt {prompt_len}, prefill + {steps} teacher-forced "
-          f"decode steps: card vs CPU logits worst max|diff| / max|logit| {worst:.3e} "
-          f"(bound 2 x 2^-{policy.fmt.certified_bits()} = {bound:.3e})")
+          f"decode steps, card vs CPU:")
+    st = int8_gate(*card, *cpu, unit=cfg.policy().fmt.error_bound())
     del host
-    return worst
+    return st
 
 
 def serve_int8(seed: int, seq_f32):
@@ -1497,23 +1615,24 @@ def main() -> None:
     log = build.report_path(lib)
     if not log.exists():
         fail(f"no compiler report {log.name} beside {lib.name}")
-    entry, bwd_reported = "", set()
+    entry, flash_reported = "", set()
     for line in log.read_text().splitlines():
         if "Compiling entry function" in line:
             entry = line
         if "registers" in line or "spill" in line:
             print("   ", line.strip())
-        if "flash_bwd" in entry and "spill" in line:
-            bwd_reported.add(entry)
+        if re.search(r"flash_(fwd|bwd)", entry) and "spill" in line:
+            flash_reported.add(entry)
             if any(int(n) for n in re.findall(r"(\d+) bytes spill", line)):
-                fail(f"the flash backward kernels spill: {entry.strip()}: {line.strip()}")
+                fail(f"the flash kernels spill: {entry.strip()}: {line.strip()}")
     hmma = hmma_counts(lib)
-    print(f"  HMMA (tensor-core) instructions per flash backward kernel: {hmma}; spill "
-          f"reports read for {len(bwd_reported)} of their instances in {log.name}")
-    if len(hmma) != 12 or not all(hmma.values()):
-        fail(f"the flash backward kernels must run on the tensor cores: {hmma}")
-    if len(bwd_reported) != len(hmma):
-        fail(f"{log.name} reports spills for {len(bwd_reported)} flash backward instances, "
+    print(f"  HMMA (tensor-core) instructions per flash kernel: {hmma}; spill "
+          f"reports read for {len(flash_reported)} of their instances in {log.name}")
+    # the forward, dq and dk/dv, each at f32 and bf16 and D 16, 32, 64
+    if len(hmma) != 18 or not all(hmma.values()):
+        fail(f"the flash kernels must run on the tensor cores: {hmma}")
+    if len(flash_reported) != len(hmma):
+        fail(f"{log.name} reports spills for {len(flash_reported)} flash kernel instances, "
              f"not {len(hmma)}")
 
     print("== 2. kernels vs plain versions")

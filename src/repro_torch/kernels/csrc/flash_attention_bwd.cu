@@ -62,8 +62,10 @@
 
 namespace {
 
+using flash_mma::allow_smem;
 using flash_mma::FragA;
 using flash_mma::FragB;
+using flash_mma::store_rows;
 
 constexpr int kBlock = flash_mma::kTileRows;  // q rows per q tile == keys per kv tile
 constexpr int kWarps = 4;                     // 16 rows (dq) or keys (dk/dv) each
@@ -73,33 +75,6 @@ constexpr int kTiles = 6;  // staged tiles: two 2-stage rings and the block's ow
 // holds two accumulator tiles, so its chunk is narrower: at 32 it spills.
 constexpr int kChunkDq = 64;
 constexpr int kChunkDkv = 16;
-
-// Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-// Stores a 16 x kD accumulator tile (rows row0.., C layout) to a row-major
-// (S, kD) matrix of U, rows past S skipped.
-template <typename U, int kD>
-__device__ __forceinline__ void store_rows(U* dst, const float (&acc)[kD / 8][4], int row0,
-                                           int S) {
-  const int gid = (threadIdx.x & 31) >> 2, tig = threadIdx.x & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + gid + 8 * i;
-    if (row >= S) continue;
-    U* out = dst + (int64_t)row * kD + 2 * tig;
-#pragma unroll
-    for (int nd = 0; nd < kD / 8; ++nd) {
-      out[8 * nd] = gs::from_f32<U>(acc[nd][2 * i]);
-      out[8 * nd + 1] = gs::from_f32<U>(acc[nd][2 * i + 1]);
-    }
-  }
-}
 
 // acc1 = a1 b^T, acc2 = a2 c^T over kD, for the 16 rows of a warp whose A
 // rows start at `a1`, `a2` (staged tiles) and the kN 8-row blocks of the B

@@ -244,4 +244,33 @@ __device__ __forceinline__ void load_tile_async(T* dst, const T* src, int row0, 
   }
 }
 
+// -- launch and store ----------------------------------------------------------
+
+// Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// Stores a 16 x kD accumulator tile (rows row0.., C layout) to a row-major
+// (S, kD) matrix of U, rows past S skipped.
+template <typename U, int kD>
+__device__ __forceinline__ void store_rows(U* dst, const float (&acc)[kD / 8][4], int row0,
+                                           int S) {
+  const int gid = (threadIdx.x & 31) >> 2, tig = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + gid + 8 * i;
+    if (row >= S) continue;
+    U* out = dst + (int64_t)row * kD + 2 * tig;
+#pragma unroll
+    for (int nd = 0; nd < kD / 8; ++nd) {
+      out[8 * nd] = gs::from_f32<U>(acc[nd][2 * i]);
+      out[8 * nd + 1] = gs::from_f32<U>(acc[nd][2 * i + 1]);
+    }
+  }
+}
+
 }  // namespace flash_mma

@@ -29,11 +29,13 @@ launches = 0
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, sm_scale: Optional[float] = None,
                     p: int, iters: int, variant: str, residuals: bool = False):
-    """q (B, H, S, D), k/v (B, KH, S, D) with D in ``HEAD_DIMS``: contiguous
-    CUDA tensors of one dtype (f32 or bf16), H a multiple of KH.  Returns
+    """q (B, H, S, D), k/v (B, KH, S, D) with D in ``HEAD_DIMS``: contiguous,
+    16-byte aligned CUDA tensors of one dtype (f32 or bf16), H a multiple of
+    KH.  Returns
     q's shape and dtype, plus (m, l) when ``residuals``."""
     global launches
     check_operands("flash_attention", q, k, v)
+    check_aligned("flash_attention", q, k, v)
     build.check_datapath(p, iters, variant)
     b, h, s, d = q.shape
     if sm_scale is None:
@@ -76,3 +78,10 @@ def check_operands(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
                          f"and H % KH == 0; got q {tuple(q.shape)}, k {tuple(k.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{kernel} kernel needs contiguous tensors")
+
+
+def check_aligned(kernel: str, *tensors: torch.Tensor) -> None:
+    """The flash kernels stage their operands with 16-byte copies."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{kernel} kernel needs 16-byte aligned operands "
+                         "(it stages them with 16-byte copies)")

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.core.goldschmidt import rom
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import check_operands
+from repro_torch.kernels.flash_attention import check_aligned, check_operands
 
 launches_dq = 0
 launches_dkv = 0
@@ -46,18 +46,12 @@ def _check_stats(q: torch.Tensor, *stats: torch.Tensor) -> None:
                              f"{q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def _check_aligned(kernel: str, *tensors: torch.Tensor) -> None:
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{kernel} kernel needs 16-byte aligned q, k, v, do "
-                         "(it stages them with 16-byte copies)")
-
-
 def dq(q, k, v, do, m, l, delta, *, causal: bool, sm_scale: float, p: int,
        iters: int, variant: str) -> torch.Tensor:
     """One launch of the dq kernel; returns dq in q's dtype."""
     global launches_dq
     check_operands("flash_attention_bwd_dq", q, k, v, do)
-    _check_aligned("flash_attention_bwd_dq", q, k, v, do)
+    check_aligned("flash_attention_bwd_dq", q, k, v, do)
     _check_stats(q, m, l, delta)
     build.check_datapath(p, iters, variant)
     out = torch.empty_like(q)
@@ -76,7 +70,7 @@ def dkv(q, k, v, do, m, l, delta, *, causal: bool, sm_scale: float, p: int,
     (B, H, S, D) f32."""
     global launches_dkv
     check_operands("flash_attention_bwd_dkv", q, k, v, do)
-    _check_aligned("flash_attention_bwd_dkv", q, k, v, do)
+    check_aligned("flash_attention_bwd_dkv", q, k, v, do)
     _check_stats(q, m, l, delta)
     build.check_datapath(p, iters, variant)
     dk_h = torch.empty(q.shape, dtype=torch.float32, device=q.device)

@@ -94,24 +94,32 @@ def rmsnorm(x: torch.Tensor, gain: torch.Tensor, *, eps: float, p: int,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, sm_scale: Optional[float] = None,
-              p: int, iters: int, variant: str, residuals: bool = False):
+              p: int, iters: int, variant: str, residuals: bool = False,
+              product=torch.einsum):
     """GQA attention; q (B, H, S, D), k/v (B, KH, S, D); head h reads KV
     head ``h // (H // KH)``.  Masked logits take the finite ``NEG_INF``;
     the epilogue is ``acc · GS(1 / max(l, 1e-30))`` as in the kernel.  With
-    ``residuals`` also returns the (B, H, S) f32 row max ``m`` and the
-    unguarded row sum ``l`` of ``exp(s - m)``."""
+    ``residuals`` also returns the (B, H, S) row max ``m`` and the
+    unguarded row sum ``l`` of ``exp(s - m)``.
+
+    f32 inside, f64 for f64 q, k, v (an oracle for the products; the
+    Goldschmidt 1/l takes l rounded to f32).  Both products, ``q kᵀ`` and
+    ``p v``, are ``product(equation, a, b)``: :func:`split_matmul` there
+    emulates the kernel's TF32 passes."""
     b, h, s, d = q.shape
     kh = k.shape[1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    qf = q.to(torch.float32).reshape(b, kh, h // kh, s, d)
-    logits = _masked_logits(qf, k.to(torch.float32), sm_scale, causal)
+    work = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf = q.to(work).reshape(b, kh, h // kh, s, d)
+    logits = _masked_logits(qf, k.to(work), sm_scale, causal, product)
     m = torch.amax(logits, dim=-1, keepdim=True)
     e = torch.exp(logits - m)
     l = torch.sum(e, dim=-1, keepdim=True)
-    inv = common.recip_positive(l.clamp_min(1e-30), rom("recip", p, str(q.device)),
-                                p=p, iters=iters, variant=variant)
-    acc = torch.einsum("bkgst,bktd->bkgsd", e, v.to(torch.float32))
+    inv = common.recip_positive(l.to(torch.float32).clamp_min(1e-30),
+                                rom("recip", p, str(q.device)),
+                                p=p, iters=iters, variant=variant).to(work)
+    acc = product("bkgst,bktd->bkgsd", e, v.to(work))
     out = (acc * inv).reshape(b, h, s, d).to(q.dtype)
     if not residuals:
         return out

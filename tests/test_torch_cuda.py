@@ -155,6 +155,28 @@ def test_flash_backward_kernels_match_an_f64_oracle(cuda_device, s, h, kh, hd, c
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,h,kh,hd,causal", [(512, 8, 1, 64, True), (333, 8, 8, 32, True),
+                                             (97, 32, 4, 64, False), (70, 4, 2, 16, True)])
+def test_flash_forward_kernel_matches_an_f64_oracle(cuda_device, s, h, kh, hd, causal):
+    """The forward's products are three TF32 passes at f32: its output, and
+    its (m, l) residuals, within 10x the plain f32 version's max error
+    against the plain version run in f64."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    q = torch.randn(2, h, s, hd, generator=g, device=cuda_device)
+    k, v = (torch.randn(2, kh, s, hd, generator=g, device=cuda_device) for _ in range(2))
+    kw = dict(causal=causal, p=7, iters=2, variant="feedback")
+    got = flash_kernel.flash_attention(q, k, v, residuals=True, **kw)
+    want = ref.attention(q, k, v, residuals=True, **kw)
+    oracle = ref.attention(q.double(), k.double(), v.double(), residuals=True, **kw)
+    for a, b, o in zip(got, want, oracle):
+        assert a.dtype == torch.float32 and a.shape == o.shape
+        err = (a.double() - o).abs().max().item()
+        assert err <= 10 * (b.double() - o).abs().max().item()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,h,kh,hd,causal", [(512, 8, 1, 64, True), (333, 8, 8, 32, True),
                                              (128, 8, 2, 32, False), (70, 4, 4, 16, False)])
 def test_flash_backward_dkv_kernel_matches_an_f64_oracle_at_bf16(cuda_device, s, h, kh, hd,
                                                                  causal):

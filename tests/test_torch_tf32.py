@@ -19,9 +19,21 @@ each f32 operand split into hi = rna_tf32(x) and lo = rna_tf32(x - hi)
   the card's gate (10x the plain f32 version's error against the f64
   oracle), and one pass outside it.
 
+The flash forward (``csrc/flash_attention.cu``) runs q k^T and p v the same
+way, and ``kernels.ref.attention`` takes the same ``product`` hook:
+
+* the forward with both products through ``split_matmul(..., 3)`` within
+  1e-5 of the JAX package's Pallas forward (interpret mode), and one pass
+  at least 16x less accurate than three against ``ref.attention`` in f64;
+* with the default hook, ``ref.attention`` bit-equal to the function as it
+  was before it took the hook (its f32 numbers are what the tests against
+  the JAX package hold).
+
 The kernels themselves are held against these on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -33,7 +45,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import flash_attention as jflash  # noqa: E402
-from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.core.goldschmidt import rom  # noqa: E402
+from repro_torch.kernels import common, ref  # noqa: E402
 
 KW = dict(p=7, iters=2, variant="feedback")
 
@@ -159,6 +172,58 @@ def test_three_passes_match_the_pallas_backward():
         b = np.asarray(b, np.float64)
         assert a.shape == b.shape, name
         assert np.abs(a.numpy() - b).max() / np.abs(b).max() < 1e-5, name
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_forward_three_passes_match_pallas_and_one_pass_does_not(causal):
+    q, k, v, _ = _bwd_inputs(s=97, h=8, kh=2, seed=4)
+    kw = dict(causal=causal, **KW)
+    jq, jk, jv = (jnp.asarray(t.numpy()) for t in (q, k, v))
+    want, _, _ = jflash._fwd_call(jq, jk, jv, causal, 1.0 / math.sqrt(64), 97, 97, 7, 2,
+                                  "feedback", True, False)
+    want = np.asarray(want, np.float64)
+    three = ref.attention(q, k, v, product=_split(3), **kw)
+    assert three.dtype == torch.float32
+    assert np.abs(three.numpy() - want).max() / np.abs(want).max() < 1e-5
+    oracle = ref.attention(q.double(), k.double(), v.double(), **kw)
+    assert oracle.dtype == torch.float64
+    one = ref.attention(q, k, v, product=_split(1), **kw)
+    err3, err1 = ((t.double() - oracle).abs().max().item() for t in (three, one))
+    assert err1 >= 16 * err3
+
+
+def _attention_before_the_hook(q, k, v, *, causal, p, iters, variant):
+    """``ref.attention`` with residuals, as it was before it took a
+    ``product`` hook."""
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    qf = q.to(torch.float32).reshape(b, kh, h // kh, s, d)
+    logits = torch.einsum("bkgsd,bktd->bkgst", qf, k.to(torch.float32)) * (1.0 / math.sqrt(d))
+    if causal:
+        keep = torch.ones(s, s, dtype=torch.bool).tril()
+        logits = logits.masked_fill(~keep, common.NEG_INF)
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    e = torch.exp(logits - m)
+    l = torch.sum(e, dim=-1, keepdim=True)
+    inv = common.recip_positive(l.clamp_min(1e-30), rom("recip", p, "cpu"), p=p,
+                                iters=iters, variant=variant)
+    acc = torch.einsum("bkgst,bktd->bkgsd", e, v.to(torch.float32))
+    out = (acc * inv).reshape(b, h, s, d).to(q.dtype)
+    return out, m.reshape(b, h, s), l.reshape(b, h, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_default_hook_is_bit_equal_to_the_attention_before_it(dtype, causal):
+    q, k, v, _ = (t.to(dtype) for t in _bwd_inputs(s=97, h=8, kh=2, seed=5))
+    kw = dict(causal=causal, **KW)
+    got = ref.attention(q, k, v, residuals=True, **kw)
+    want = _attention_before_the_hook(q, k, v, **kw)
+    ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got[0].view(ints), want[0].view(ints))
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == torch.float32 and torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(ref.attention(q, k, v, **kw).view(ints), want[0].view(ints))
 
 
 @pytest.mark.parametrize("equation", ["...ij,...jk->...ik", "bkgst,bktd->bkgsd",
