@@ -9,7 +9,10 @@ Phases, in order; any failure exits nonzero before the last line:
    matmuls and cuDNN, and the CUDA kernels built from ``csrc/`` with nvcc;
    the registers and spills ``-Xptxas -v`` reports, failing on any spill
    in the flash kernels (forward, dq, dk/dv) or on an instance of them
-   without tensor-core (HMMA) instructions in ``cuobjdump -sass``.
+   without tensor-core (HMMA) instructions in ``cuobjdump -sass``; the
+   registers of each of gs_rsqrt_kernel's 12 instances, failing on a spill
+   in one or on a 16-byte vector instance without 16-byte loads and stores
+   (LDG.E.128 / STG.E.128).
 2. Kernels vs their plain PyTorch versions on the card: gs_rmsnorm at
    (rows, 2048), flash attention at (1, 32, S, 64) / (1, 4, S, 64), f32 and
    bf16, held to the reference's ERR_BOUNDS (f32 2^-15, bf16 2^-4), and at
@@ -90,7 +93,9 @@ Phases, in order; any failure exits nonzero before the last line:
    variant) grid of ``tests/test_torch_kernels.py`` and two f32 points,
    (8, 0) and (7, 1), where the Goldschmidt error shows: gs_recip and the
    three modes of gs_rsqrt bit-equal (any NaN matching any NaN) at
-   (256, 128), (33, 517), (4096, 128) and on a row of specials, gs_softmax at
+   (256, 128), (33, 517), (4096, 128), on a row of specials, on (256, 128)
+   views 1, 2 and 3 elements into their storage and on lengths 1, 3, 5, 7,
+   9 and 4097, gs_softmax at
    (16, 384), (37, 200) and (8, 32000) within 2^-18 of the plain value (f32)
    or one ulp (bf16), every launch counted; (b) their VJPs through
    ``kernels.ops`` on the card against the same on the CPU; (c) gs_rmsnorm,
@@ -99,9 +104,12 @@ Phases, in order; any failure exits nonzero before the last line:
    the port's kernel benchmark (``repro_torch.benchmarks.bench_kernels.records``,
    full size) on the card: every row within its bound, every launch the
    benchmark's loop makes counted exactly; (d) the three kernels timed at
-   the benchmark's shapes and at (4096, 128) / (8, 32000) beside their plain
-   versions and ``torch.reciprocal`` / ``torch.rsqrt`` / ``torch.sqrt`` /
-   ``torch.softmax``.
+   the benchmark's shapes and at (4096, 128) / (8, 32000), gs_recip and
+   gs_rsqrt's three modes also at (65536, 128) on copies cycled past the
+   L2, gs_rsqrt at bf16 and at p 12, beside their plain versions and
+   ``torch.reciprocal`` / ``torch.rsqrt`` / ``torch.sqrt`` /
+   ``torch.softmax``, with the SM and memory clocks nvidia-smi samples
+   meanwhile.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -153,17 +161,21 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def hmma_counts(lib: Path) -> dict:
-    """Tensor-core (HMMA) instructions in each instance of the flash kernels
-    (the forward, dq and dk/dv), from the built library's SASS (``cuobjdump
-    -sass``)."""
+def sass(lib: Path) -> str:
+    """The built library's SASS (``cuobjdump -sass``)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                          timeout=300)
     if out.returncode != 0:
         fail(f"cuobjdump: {out.stderr.strip()[-500:]}")
+    return out.stdout
+
+
+def hmma_counts(sass_text: str) -> dict:
+    """Tensor-core (HMMA) instructions in each instance of the flash kernels
+    (the forward, dq and dk/dv), from the library's SASS."""
     counts, name = {}, None
-    for line in out.stdout.splitlines():
+    for line in sass_text.splitlines():
         found = re.search(r"Function : \S*(flash_(?:fwd|bwd_\w+?)_kernel)I(\w+?)Li(\d+)E",
                           line)
         if "Function :" in line:
@@ -175,6 +187,74 @@ def hmma_counts(lib: Path) -> dict:
         elif name and "HMMA" in line:
             counts[name] += 1
     return counts
+
+
+# gs_rsqrt_kernel<T, mode, width> as it is mangled
+RSQRT_INSTANCE = re.compile(r"gs_rsqrt_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)EE")
+
+
+def rsqrt_instance_name(found) -> str:
+    dtype, mode, width = found.groups()
+    return f"gs_rsqrt_kernel<{'float' if dtype == 'f' else 'bf16'}, mode {mode}, width {width}>"
+
+
+def rsqrt_sass_counts(sass_text: str) -> dict:
+    """16-byte loads and stores (LDG.E.128 / STG.E.128) and the instructions
+    (NOP padding aside) in each instance of gs_rsqrt_kernel, from the
+    library's SASS."""
+    counts, name = {}, None
+    for line in sass_text.splitlines():
+        if "Function :" in line:
+            found = RSQRT_INSTANCE.search(line)
+            name = rsqrt_instance_name(found) if found else None
+            if name:
+                counts[name] = {"LDG.128": 0, "STG.128": 0, "instructions": 0}
+        elif name and re.search(r"/\*[0-9a-f]{4}\*/\s+\S", line) and "NOP" not in line:
+            counts[name]["instructions"] += 1
+            for op in ("LDG", "STG"):
+                if re.search(rf"\b{op}\.E[.\w]*?\.128\b", line):
+                    counts[name][f"{op}.128"] += 1
+    return counts
+
+
+def rsqrt_registers(log_text: str) -> dict:
+    """Registers and spill bytes of each gs_rsqrt_kernel instance, from the
+    build's ``-Xptxas -v`` report."""
+    found, report = None, {}
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            found = RSQRT_INSTANCE.search(line)
+            if found:
+                report[rsqrt_instance_name(found)] = {}
+        elif found:
+            name = rsqrt_instance_name(found)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if spill:
+                report[name]["spill"] = int(spill.group(1)) + int(spill.group(2))
+            if regs:
+                report[name]["registers"] = int(regs.group(1))
+    return report
+
+
+def check_rsqrt_build(lib: Path, log_text: str, sass_text: str) -> None:
+    """Phase 1 for gs_rsqrt_kernel: every instance's registers and SASS
+    instructions, no spill in any, and 16-byte loads and stores in each
+    vector instance."""
+    regs = rsqrt_registers(log_text)
+    vec = rsqrt_sass_counts(sass_text)
+    for name in sorted(regs):
+        print(f"  {name}: {regs[name].get('registers')} registers, "
+              f"{regs[name].get('spill')} bytes spilled; {vec.get(name)}")
+    # 2 dtypes x 3 modes x 2 widths
+    if len(regs) != 12 or set(vec) != set(regs):
+        fail(f"expected the 12 gs_rsqrt_kernel instances in {lib.name}'s report and SASS, "
+             f"found {sorted(regs)} and {sorted(vec)}")
+    for name, r in regs.items():
+        if "registers" not in r or r.get("spill") != 0:
+            fail(f"{name} spills or has no register report: {r}")
+        if not name.endswith("width 1>") and not (vec[name]["LDG.128"] and vec[name]["STG.128"]):
+            fail(f"{name} lacks 16-byte loads or stores: {vec[name]}")
 
 
 def cuda_ms(fn, n: int) -> float:
@@ -192,6 +272,40 @@ def cuda_ms(fn, n: int) -> float:
         stop.synchronize()
         rounds.append(start.elapsed_time(stop) / n)
     return sorted(rounds)[2]
+
+
+def queued_ms(fn, n: int) -> float:
+    """Device time per call of ``n`` calls run back to back on the card,
+    from CUDA events and not from the profiler: the calls queue behind a
+    spin kernel (``torch.cuda._sleep``) that lasts until the host has
+    launched them all, so no host gap falls between them.  Median of 3
+    rounds, after a warm-up; a round whose spin ended before the last
+    launch is run again with a spin twice as long (``fn`` must not
+    synchronise)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    cycles = int(4 * (time.perf_counter() - t0) * 2e9)  # 4x the launches' host time at 2 GHz
+    torch.cuda.synchronize()
+    rounds = []
+    for _ in range(10):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        stop.record()
+        drained = start.query()
+        stop.synchronize()
+        if drained:
+            cycles *= 2
+            continue
+        rounds.append(start.elapsed_time(stop) / n)
+        if len(rounds) == 3:
+            return sorted(rounds)[1]
+    fail(f"queued_ms: the spin kernel kept ending before {n} calls were launched")
 
 
 def profiled(fn):
@@ -235,6 +349,67 @@ def device_ms(fn, n: int):
         if events:
             return sum(e.time_range.elapsed_us() for e in events) / n / 1e3
     return None
+
+
+class L2Ring:
+    """Copies of an input that a timed function takes in turn, enough that
+    each is read again only after twice the card's L2 of other calls'
+    traffic; each call's result is held until its copy comes round, so the
+    outputs rotate over as many buffers.  A time from it is one against
+    device memory, where back-to-back calls on one input would find part of
+    it in the L2."""
+
+    def __init__(self, x, call_bytes: int):
+        l2 = torch.cuda.get_device_properties(x.device).L2_cache_size
+        self.xs = [x.clone() for _ in range(1 + -(-2 * l2 // call_bytes))]
+        self.held = [None] * len(self.xs)
+        self.i = 0
+
+    def calls(self, fn):
+        """A function of no arguments that runs ``fn`` on the next copy."""
+        def run():
+            i = self.i % len(self.xs)
+            self.i += 1
+            self.held[i] = fn(self.xs[i])
+        return run
+
+
+class SampledClocks:
+    """The card's SM and memory clocks, sampled by nvidia-smi every 100 ms
+    while the ``with`` block runs."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,clocks.mem",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        self.samples = [tuple(int(v) for v in line.split(",")) for line in out.splitlines()
+                        if re.fullmatch(r"\s*\d+\s*,\s*\d+\s*", line)]
+        return False
+
+    def summary(self) -> dict:
+        """Sample count and [min, median, max] MHz of each clock."""
+        if not self.samples:
+            return {"samples": 0}
+        spread = lambda v: [min(v), sorted(v)[len(v) // 2], max(v)]  # noqa: E731
+        sm, mem = zip(*self.samples)
+        return {"samples": len(sm), "sm_mhz": spread(sm), "mem_mhz": spread(mem)}
+
+
+def under_load(seconds: float = 1.0) -> None:
+    """Keep the card busy with f32 GEMMs for ``seconds``, so that timings
+    that follow start from its clocks under load."""
+    a = torch.randn(4096, 4096, device="cuda")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(8):
+            a @ a
+        torch.cuda.synchronize()
 
 
 # -- phase 2 -------------------------------------------------------------------
@@ -1325,6 +1500,11 @@ SPECIALS = [0.0, -0.0, 1e-45, float("inf"), float("-inf"), float("nan"), -2.0,
 # row by the datapath's error, 2^-9 at (8, 0) and 2^-14 at (7, 1).
 SOFTMAX_F32_RTOL = 2.0 ** -18
 BENCH_KERNELS = ("gs_recip", "gs_rsqrt", "gs_softmax")
+# inputs that reach gs_rsqrt_kernel's other paths: contiguous views 1, 2 and 3
+# elements into their storage (not 16-byte aligned: the width-1 instance),
+# and lengths that end in a partial vector
+STORAGE_OFFSETS = (1, 2, 3)
+TAIL_LENGTHS = (1, 3, 5, 7, 9, 4097)
 
 
 def bit_equal(a, b) -> bool:
@@ -1332,6 +1512,15 @@ def bit_equal(a, b) -> bool:
     ints = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
     same = (a.view(ints) == b.view(ints)) | (torch.isnan(a) & torch.isnan(b))
     return a.dtype == b.dtype and a.shape == b.shape and bool(same.all())
+
+
+def offset_view(x, offset: int):
+    """A contiguous copy of ``x`` that starts ``offset`` elements into its
+    storage."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
 
 
 def max_abs_diff(a, b) -> float:
@@ -1363,8 +1552,10 @@ def check_bench_kernels():
     for dname, p, iters, variant in ELEMENTWISE_PRECISIONS:
         dtype = getattr(torch, dname)
         kw = dict(p=p, iters=iters, variant=variant)
-        for x32 in xs:
-            x = x32.to(dtype)
+        inputs = [x32.to(dtype) for x32 in xs]
+        inputs += [offset_view(inputs[0], off) for off in STORAGE_OFFSETS]
+        inputs += [inputs[2].flatten()[:n] for n in TAIL_LENGTHS]
+        for x in inputs:
             pairs = [("gs_recip", "recip", elementwise_kernel.gs_recip(x, **kw),
                       ref.reciprocal(x, **kw))]
             for mode in ("rsqrt", "sqrt"):
@@ -1378,14 +1569,16 @@ def check_bench_kernels():
             calls["gs_rsqrt"] += 3
             for name, what, a, b in pairs:
                 if not bit_equal(a, b):
-                    fail(f"{what} {dname} {tuple(x.shape)} p={p} iters={iters} {variant}: "
+                    fail(f"{what} {dname} {tuple(x.shape)} (storage offset "
+                         f"{x.storage_offset()}) p={p} iters={iters} {variant}: "
                          f"not bit-equal to the plain version (max |diff| "
                          f"{max_abs_diff(a, b):.3e}, NaN classes equal "
                          f"{bool((torch.isnan(a) == torch.isnan(b)).all())})")
                 worst[name] = max(worst[name], max_abs_diff(a, b))
         print(f"  {dname} p={p} iters={iters} {variant}: gs_recip, gs_rsqrt (rsqrt, sqrt, "
               f"sqrt_both) bit-equal to the plain versions at (256, 128), (33, 517), "
-              f"(4096, 128) and the {len(SPECIALS)} specials")
+              f"(4096, 128), the {len(SPECIALS)} specials, (256, 128) at storage offsets "
+              f"{STORAGE_OFFSETS} and lengths {TAIL_LENGTHS}")
         for x32 in rows:
             x = x32.to(dtype)
             got, want = softmax_kernel.gs_softmax(x, **kw), ref.softmax(x, **kw)
@@ -1533,54 +1726,94 @@ def run_bench():
 
 
 def time_bench_kernels():
-    """(d) the three kernels on positive f32 inputs (the benchmark's draw),
-    p 7, iters 2, feedback."""
+    """(d) the three kernels on positive inputs (the benchmark's draw), p 7,
+    iters 2, feedback, f32 unless a row says otherwise, after a second of
+    load; gs_recip and gs_rsqrt also at (65536, 128) (the "hbm" rows: 67 MB
+    of f32 traffic a call, each call on copies cycled by ``L2Ring``, so from
+    device memory), gs_rsqrt at bf16 and at p 12 (iters 1, pipelined), where
+    the ROM is 16 KB.  The rows at (4096, 128) and below run back to back on
+    one input, which the L2 holds.  Device times twice: the profiler's,
+    and the kernel's and library call's queued back to back
+    (``queued_ms``)."""
     from repro_torch.kernels import gs_elementwise as elementwise_kernel
     from repro_torch.kernels import gs_softmax as softmax_kernel
     from repro_torch.kernels import ref
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(10)
-    kw = dict(p=7, iters=2, variant="feedback")
+    kw7 = dict(p=7, iters=2, variant="feedback")
+    kw12 = dict(p=12, iters=1, variant="pipelined")
+    f32, bf16 = torch.float32, torch.bfloat16
     rows = {}
-    cases = [("gs_recip", "recip", (256, 128), "bench"), ("gs_recip", "recip", (4096, 128), "large"),
-             ("gs_rsqrt", "rsqrt", (256, 128), "bench"), ("gs_rsqrt", "rsqrt", (4096, 128), "large"),
-             ("gs_rsqrt", "sqrt", (256, 128), "bench sqrt"),
-             ("gs_rsqrt", "sqrt", (4096, 128), "large sqrt"),
-             ("gs_softmax", "softmax", (16, 384), "bench"),
-             ("gs_softmax", "softmax", (8, 32000), "large")]
-    for name, fn, shape, label in cases:
+    under_load()
+    cases = [("gs_recip", "recip", (256, 128), "bench", f32, kw7),
+             ("gs_recip", "recip", (4096, 128), "large", f32, kw7),
+             ("gs_recip", "recip", (65536, 128), "hbm", f32, kw7),
+             ("gs_rsqrt", "rsqrt", (256, 128), "bench", f32, kw7),
+             ("gs_rsqrt", "rsqrt", (4096, 128), "large", f32, kw7),
+             ("gs_rsqrt", "sqrt", (256, 128), "bench sqrt", f32, kw7),
+             ("gs_rsqrt", "sqrt", (4096, 128), "large sqrt", f32, kw7),
+             ("gs_rsqrt", "rsqrt", (65536, 128), "hbm", f32, kw7),
+             ("gs_rsqrt", "sqrt", (65536, 128), "hbm sqrt", f32, kw7),
+             ("gs_rsqrt", "sqrt_both", (65536, 128), "hbm sqrt_both", f32, kw7),
+             ("gs_rsqrt", "rsqrt", (4096, 128), "large bf16", bf16, kw7),
+             ("gs_rsqrt", "sqrt", (4096, 128), "large bf16 sqrt", bf16, kw7),
+             ("gs_rsqrt", "rsqrt", (4096, 128), "large p12", f32, kw12),
+             ("gs_rsqrt", "rsqrt", (65536, 128), "hbm p12", f32, kw12),
+             ("gs_softmax", "softmax", (16, 384), "bench", f32, kw7),
+             ("gs_softmax", "softmax", (8, 32000), "large", f32, kw7)]
+    for name, fn, shape, label, dtype, kw in cases:
         n = shape[0] * shape[1]
+        size = torch.finfo(dtype).bits // 8
+        nbytes = 2 * size * n  # read x once, write each output once
         if fn == "softmax":
             x = 4 * torch.randn(shape, generator=g, device=dev)
-            kern = lambda: softmax_kernel.gs_softmax(x, **kw)  # noqa: E731
-            plain = lambda: ref.softmax(x, **kw)  # noqa: E731
-            lib = lambda: torch.softmax(x, dim=-1)  # noqa: E731
+            kern = lambda x: softmax_kernel.gs_softmax(x, **kw)  # noqa: E731
+            plain = lambda x: ref.softmax(x, **kw)  # noqa: E731
+            lib = lambda x: torch.softmax(x, dim=-1)  # noqa: E731
             flops = 7 * n  # max, two subtracts, two exps, an add and a multiply
         else:
-            x = torch.randn(shape, generator=g, device=dev).abs() + 0.1
+            x = (torch.randn(shape, generator=g, device=dev).abs() + 0.1).to(dtype)
             if fn == "recip":
-                kern = lambda: elementwise_kernel.gs_recip(x, **kw)  # noqa: E731
-                plain = lambda: ref.reciprocal(x, **kw)  # noqa: E731
-                lib = lambda: torch.reciprocal(x)  # noqa: E731
+                kern = lambda x: elementwise_kernel.gs_recip(x, **kw)  # noqa: E731
+                plain = lambda x: ref.reciprocal(x, **kw)  # noqa: E731
+                lib = torch.reciprocal
                 flops = (2 + 3 * kw["iters"]) * n
             else:
-                kern = lambda: elementwise_kernel.gs_rsqrt(x, mode=fn, **kw)  # noqa: E731
-                plain = lambda: ref.rsqrt(x, mode=fn, **kw)  # noqa: E731
-                lib = (lambda: torch.rsqrt(x)) if fn == "rsqrt" else (lambda: torch.sqrt(x))
+                kern = lambda x: elementwise_kernel.gs_rsqrt(x, mode=fn, **kw)  # noqa: E731
+                plain = lambda x: ref.rsqrt(x, mode=fn, **kw)  # noqa: E731
+                lib = {"rsqrt": torch.rsqrt, "sqrt": torch.sqrt,
+                       # no one call computes both: the pair of calls
+                       "sqrt_both": lambda x: (torch.sqrt(x), torch.rsqrt(x))}[fn]
                 flops = (4 + 6 * kw["iters"]) * n
-        b, by = bound_ms(8 * n, flops, "float32")  # read 4 bytes and write 4 per element
+                if fn == "sqrt_both":
+                    nbytes = 3 * size * n
+        b, by = bound_ms(nbytes, flops, "float32")
+        desc = f"{shape} {str(dtype).split('.')[-1]}"
+        if fn in ("sqrt", "sqrt_both"):
+            desc += f" {fn}"
+        if kw is kw12:
+            desc += f" p={kw['p']} iters={kw['iters']} {kw['variant']}"
+        if label.startswith("hbm"):
+            ring = L2Ring(x, nbytes)
+            kern, plain, lib = (ring.calls(f) for f in (kern, plain, lib))
+            desc += f", {len(ring.xs)} copies cycled"
+        else:
+            kern, plain, lib = ((lambda f=f: f(x)) for f in (kern, plain, lib))
         rows[(name, label)] = dict(
             ms=cuda_ms(kern, 200), plain_ms=cuda_ms(plain, 20), library_ms=cuda_ms(lib, 200),
             bound_ms=b, bound_by=by, device_ms=[device_ms(f, 50) for f in (kern, plain, lib)],
-            shape=f"{shape} float32" + (" sqrt" if fn == "sqrt" else ""))
+            queued_ms=[queued_ms(f, 50) for f in (kern, lib)], shape=desc)
     us = lambda v: "not measured" if v is None else f"{v * 1e3:.2f} us"  # noqa: E731
     for (kname, label), r in rows.items():
+        library = ("torch.sqrt + torch.rsqrt (two calls)" if label.endswith("sqrt_both")
+                   else "library")
         print(f"  {kname} {label} {r['shape']}: per call (CUDA events, back to back) kernel "
-              f"{us(r['ms'])}, plain {us(r['plain_ms'])}, library {us(r['library_ms'])}; "
+              f"{us(r['ms'])}, plain {us(r['plain_ms'])}, {library} {us(r['library_ms'])}; "
               f"device time (profiler) kernel {us(r['device_ms'][0])}, plain "
-              f"{us(r['device_ms'][1])}, library {us(r['device_ms'][2])}; bound "
-              f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
+              f"{us(r['device_ms'][1])}, {library} {us(r['device_ms'][2])}; queued back to "
+              f"back (CUDA events) kernel {us(r['queued_ms'][0])}, {library} "
+              f"{us(r['queued_ms'][1])}; bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
     return rows
 
 
@@ -1625,7 +1858,8 @@ def main() -> None:
             flash_reported.add(entry)
             if any(int(n) for n in re.findall(r"(\d+) bytes spill", line)):
                 fail(f"the flash kernels spill: {entry.strip()}: {line.strip()}")
-    hmma = hmma_counts(lib)
+    sass_text = sass(lib)
+    hmma = hmma_counts(sass_text)
     print(f"  HMMA (tensor-core) instructions per flash kernel: {hmma}; spill "
           f"reports read for {len(flash_reported)} of their instances in {log.name}")
     # the forward, dq and dk/dv, each at f32 and bf16 and D 16, 32, 64
@@ -1634,6 +1868,7 @@ def main() -> None:
     if len(flash_reported) != len(hmma):
         fail(f"{log.name} reports spills for {len(flash_reported)} flash kernel instances, "
              f"not {len(hmma)}")
+    check_rsqrt_build(lib, log.read_text(), sass_text)
 
     print("== 2. kernels vs plain versions")
     worst = check_kernels()
@@ -1667,7 +1902,9 @@ def main() -> None:
     for name, err in check_bench_shapes().items():
         worst[name] = max(worst[name], err)
     counts_bench = run_bench()
-    timing.update(time_bench_kernels())
+    with SampledClocks() as clocks:
+        timing.update(time_bench_kernels())
+    print(f"  8d clocks (nvidia-smi every 100 ms): {json.dumps(clocks.summary())}")
     print(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
 
     picks = {"gs_rmsnorm": ("decode", "gs_rmsnorm.cu", "gs_rmsnorm.py:64"),

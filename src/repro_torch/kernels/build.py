@@ -57,8 +57,10 @@ _SIGNATURES = {
     # x, rom, out, n, p, iters, pipelined, is_bf16, stream
     "gs_recip_launch": [_P] * 3 + [_L] + [_I] * 4 + [_P],
     # x, rom, out0, out1, n, p, iters, pipelined, rsqrt_scale, mode, is_bf16,
-    # stream
-    "gs_rsqrt_launch": [_P] * 4 + [_L] + [_I] * 3 + [_F] + [_I] * 2 + [_P],
+    # vector, grid, stream
+    "gs_rsqrt_launch": [_P] * 4 + [_L] + [_I] * 3 + [_F] + [_I] * 4 + [_P],
+    # mode, is_bf16, vector, blocks (out)
+    "gs_rsqrt_occupancy": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
     # x, rom, out, rows, d, p, iters, pipelined, is_bf16, stream
     "gs_softmax_launch": [_P] * 3 + [_I] * 6 + [_P],
 }

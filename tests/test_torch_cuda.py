@@ -452,3 +452,61 @@ def test_bench_records_on_the_card_are_ok_and_launch_each_kernel(cuda_device):
     launched = bench_kernels.expected_launches(recs, smoke=True)
     assert counts == {name: launched.get(name, 0) for name in counts}
     assert {"gs_recip", "gs_rsqrt", "gs_softmax"} <= set(launched)
+
+
+def _offset_view(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` that starts ``offset`` elements into its
+    storage."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,p,iters,variant", ELEMENTWISE_PRECISIONS)
+def test_rsqrt_kernel_on_offsets_tails_and_many_trips_is_bit_equal(cuda_device, dtype, p,
+                                                                   iters, variant):
+    """gs_rsqrt_kernel's width-1 instance (views 1, 2 and 3 elements into
+    their storage), its tail (lengths that end in a partial vector) and its
+    grid-stride loop ((65536, 128), many trips a thread), in all three
+    modes, one launch a call; an empty tensor makes none."""
+    kw = dict(p=p, iters=iters, variant=variant)
+    xs = _elementwise_inputs(cuda_device)
+    inputs = [_offset_view(xs[0].to(dtype), off) for off in (1, 2, 3)]
+    inputs += [xs[2].to(dtype).flatten()[:n] for n in (1, 3, 5, 7, 9, 4097)]
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    shape = (65536, 128)
+    mag = torch.exp2(120 * torch.rand(shape, generator=g, device=cuda_device) - 60)
+    sign = torch.where(torch.rand(shape, generator=g, device=cuda_device) < 0.5, -1.0, 1.0)
+    inputs.append((mag * sign).to(dtype))
+    for x in inputs:
+        for mode in ("rsqrt", "sqrt", "sqrt_both"):
+            before = elementwise_kernel.launches_rsqrt
+            got = elementwise_kernel.gs_rsqrt(x, mode=mode, **kw)
+            assert elementwise_kernel.launches_rsqrt == before + 1
+            want = ref.rsqrt(x, mode=mode, **kw)
+            if mode != "sqrt_both":
+                got, want = (got,), (want,)
+            assert all(_bit_equal(a, b) for a, b in zip(got, want)), (
+                mode, tuple(x.shape), x.storage_offset())
+    before = elementwise_kernel.launches_rsqrt
+    empty = torch.empty(0, 128, dtype=dtype, device=cuda_device)
+    assert elementwise_kernel.gs_rsqrt(empty, mode="sqrt_both", **kw)[0].shape == empty.shape
+    assert elementwise_kernel.launches_rsqrt == before
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_rsqrt_launch_plan_on_the_card(cuda_device):
+    """Every gs_rsqrt_kernel instance fits on an SM, and a large call's grid
+    is one wave of resident blocks on the card's SMs."""
+    card_sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for mode in elementwise_kernel.MODES:
+        for is_bf16, vec in ((False, 4), (True, 8)):
+            for width in (1, vec):
+                sms, resident = elementwise_kernel.grid_limits(cuda_device, mode, is_bf16,
+                                                               width)
+                assert sms == card_sms and resident >= 1
+                assert elementwise_kernel.grid_size(65536 * 128, width, sms,
+                                                    resident) == sms * resident
