@@ -10,9 +10,10 @@ Phases, in order; any failure exits nonzero before the last line:
    the registers and spills ``-Xptxas -v`` reports, failing on any spill
    in the flash kernels (forward, dq, dk/dv) or on an instance of them
    without tensor-core (HMMA) instructions in ``cuobjdump -sass``; the
-   registers of each of gs_rsqrt_kernel's 12 instances, failing on a spill
-   in one or on a 16-byte vector instance without 16-byte loads and stores
-   (LDG.E.128 / STG.E.128).
+   registers and SASS instructions of each of gs_recip_kernel's 4 and
+   gs_rsqrt_kernel's 12 instances, failing on a spill, on shared memory or
+   a barrier in one, or on a 16-byte vector instance without 16-byte loads
+   through the read-only path and stores (LDG.E.128.CONSTANT / STG.E.128).
 2. Kernels vs their plain PyTorch versions on the card: gs_rmsnorm at
    (rows, 2048), flash attention at (1, 32, S, 64) / (1, 4, S, 64), f32 and
    bf16, held to the reference's ERR_BOUNDS (f32 2^-15, bf16 2^-4), and at
@@ -94,8 +95,8 @@ Phases, in order; any failure exits nonzero before the last line:
    (8, 0) and (7, 1), where the Goldschmidt error shows: gs_recip and the
    three modes of gs_rsqrt bit-equal (any NaN matching any NaN) at
    (256, 128), (33, 517), (4096, 128), on a row of specials, on (256, 128)
-   views 1, 2 and 3 elements into their storage and on lengths 1, 3, 5, 7,
-   9 and 4097, gs_softmax at
+   views 1, 2 and 3 elements into their storage and on lengths 1 to 7, 9
+   and 4097, gs_softmax at
    (16, 384), (37, 200) and (8, 32000) within 2^-18 of the plain value (f32)
    or one ulp (bf16), every launch counted; (b) their VJPs through
    ``kernels.ops`` on the card against the same on the CPU; (c) gs_rmsnorm,
@@ -106,8 +107,8 @@ Phases, in order; any failure exits nonzero before the last line:
    benchmark's loop makes counted exactly; (d) the three kernels timed at
    the benchmark's shapes and at (4096, 128) / (8, 32000), gs_recip and
    gs_rsqrt's three modes also at (65536, 128) on copies cycled past the
-   L2, gs_rsqrt at bf16 and at p 12, beside their plain versions and
-   ``torch.reciprocal`` / ``torch.rsqrt`` / ``torch.sqrt`` /
+   L2, gs_recip and gs_rsqrt at bf16 and at p 12, beside their plain
+   versions and ``torch.reciprocal`` / ``torch.rsqrt`` / ``torch.sqrt`` /
    ``torch.softmax``, with the SM and memory clocks nvidia-smi samples
    meanwhile.
 
@@ -189,45 +190,53 @@ def hmma_counts(sass_text: str) -> dict:
     return counts
 
 
-# gs_rsqrt_kernel<T, mode, width> as it is mangled
-RSQRT_INSTANCE = re.compile(r"gs_rsqrt_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)EE")
+# gs_recip_kernel<T, width> and gs_rsqrt_kernel<T, mode, width> as they are
+# mangled
+ELEMENTWISE_INSTANCE = re.compile(
+    r"gs_(recip|rsqrt)_kernelI(f|13__nv_bfloat16)(?:Li(\d)E)?Li(\d)EE")
+# 2 dtypes x 2 widths for gs_recip_kernel, x 3 modes for gs_rsqrt_kernel
+ELEMENTWISE_INSTANCES = {"recip": 4, "rsqrt": 12}
 
 
-def rsqrt_instance_name(found) -> str:
-    dtype, mode, width = found.groups()
-    return f"gs_rsqrt_kernel<{'float' if dtype == 'f' else 'bf16'}, mode {mode}, width {width}>"
+def elementwise_instance_name(found) -> str:
+    kernel, dtype, mode, width = found.groups()
+    mode = "" if mode is None else f", mode {mode}"
+    return (f"gs_{kernel}_kernel<{'float' if dtype == 'f' else 'bf16'}{mode}, "
+            f"width {width}>")
 
 
-def rsqrt_sass_counts(sass_text: str) -> dict:
-    """16-byte loads and stores (LDG.E.128 / STG.E.128) and the instructions
-    (NOP padding aside) in each instance of gs_rsqrt_kernel, from the
-    library's SASS."""
+def elementwise_sass_counts(sass_text: str) -> dict:
+    """16-byte loads through the read-only path and 16-byte stores
+    (LDG.E.128.CONSTANT / STG.E.128), shared-memory and barrier instructions,
+    and the instructions (NOP padding aside) in each instance of
+    gs_recip_kernel and gs_rsqrt_kernel, from the library's SASS."""
+    ops = {"LDG.E.128.CONSTANT": r"\bLDG\.E\.128\.CONSTANT\b",
+           "STG.E.128": r"\bSTG\.E\.128\b", "shared/barrier": r"\b(?:LDS|STS|BAR)\b"}
     counts, name = {}, None
     for line in sass_text.splitlines():
         if "Function :" in line:
-            found = RSQRT_INSTANCE.search(line)
-            name = rsqrt_instance_name(found) if found else None
+            found = ELEMENTWISE_INSTANCE.search(line)
+            name = elementwise_instance_name(found) if found else None
             if name:
-                counts[name] = {"LDG.128": 0, "STG.128": 0, "instructions": 0}
+                counts[name] = {**{op: 0 for op in ops}, "instructions": 0}
         elif name and re.search(r"/\*[0-9a-f]{4}\*/\s+\S", line) and "NOP" not in line:
             counts[name]["instructions"] += 1
-            for op in ("LDG", "STG"):
-                if re.search(rf"\b{op}\.E[.\w]*?\.128\b", line):
-                    counts[name][f"{op}.128"] += 1
+            for op, pattern in ops.items():
+                counts[name][op] += bool(re.search(pattern, line))
     return counts
 
 
-def rsqrt_registers(log_text: str) -> dict:
-    """Registers and spill bytes of each gs_rsqrt_kernel instance, from the
-    build's ``-Xptxas -v`` report."""
+def elementwise_registers(log_text: str) -> dict:
+    """Registers and spill bytes of each gs_recip_kernel and gs_rsqrt_kernel
+    instance, from the build's ``-Xptxas -v`` report."""
     found, report = None, {}
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
-            found = RSQRT_INSTANCE.search(line)
+            found = ELEMENTWISE_INSTANCE.search(line)
             if found:
-                report[rsqrt_instance_name(found)] = {}
+                report[elementwise_instance_name(found)] = {}
         elif found:
-            name = rsqrt_instance_name(found)
+            name = elementwise_instance_name(found)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             regs = re.search(r"Used (\d+) registers", line)
             if spill:
@@ -237,23 +246,27 @@ def rsqrt_registers(log_text: str) -> dict:
     return report
 
 
-def check_rsqrt_build(lib: Path, log_text: str, sass_text: str) -> None:
-    """Phase 1 for gs_rsqrt_kernel: every instance's registers and SASS
-    instructions, no spill in any, and 16-byte loads and stores in each
-    vector instance."""
-    regs = rsqrt_registers(log_text)
-    vec = rsqrt_sass_counts(sass_text)
+def check_elementwise_build(lib: Path, log_text: str, sass_text: str) -> None:
+    """Phase 1 for gs_recip_kernel and gs_rsqrt_kernel: every instance's
+    registers and SASS instructions; no spill, no shared memory and no
+    barrier in any, and 16-byte loads and stores in each vector instance."""
+    regs = elementwise_registers(log_text)
+    vec = elementwise_sass_counts(sass_text)
     for name in sorted(regs):
         print(f"  {name}: {regs[name].get('registers')} registers, "
               f"{regs[name].get('spill')} bytes spilled; {vec.get(name)}")
-    # 2 dtypes x 3 modes x 2 widths
-    if len(regs) != 12 or set(vec) != set(regs):
-        fail(f"expected the 12 gs_rsqrt_kernel instances in {lib.name}'s report and SASS, "
-             f"found {sorted(regs)} and {sorted(vec)}")
+    found = {k: sum(name.startswith(f"gs_{k}_kernel<") for name in regs)
+             for k in ELEMENTWISE_INSTANCES}
+    if found != ELEMENTWISE_INSTANCES or set(vec) != set(regs):
+        fail(f"expected {ELEMENTWISE_INSTANCES} instances of gs_recip_kernel / gs_rsqrt_kernel "
+             f"in {lib.name}'s report and SASS, found {sorted(regs)} and {sorted(vec)}")
     for name, r in regs.items():
         if "registers" not in r or r.get("spill") != 0:
             fail(f"{name} spills or has no register report: {r}")
-        if not name.endswith("width 1>") and not (vec[name]["LDG.128"] and vec[name]["STG.128"]):
+        if vec[name]["shared/barrier"]:
+            fail(f"{name} uses shared memory or a barrier: {vec[name]}")
+        if not name.endswith("width 1>") and not (vec[name]["LDG.E.128.CONSTANT"]
+                                                   and vec[name]["STG.E.128"]):
             fail(f"{name} lacks 16-byte loads or stores: {vec[name]}")
 
 
@@ -1491,20 +1504,23 @@ def time_fixed_kernels():
 ELEMENTWISE_PRECISIONS = (("float32", 7, 2, "feedback"), ("float32", 12, 1, "pipelined"),
                           ("bfloat16", 8, 0, "feedback"), ("bfloat16", 8, 0, "pipelined"),
                           ("float32", 8, 0, "feedback"), ("float32", 7, 1, "pipelined"))
-# ±0, the smallest subnormal, ±inf, NaN, -2, the largest and smallest normal
-SPECIALS = [0.0, -0.0, 1e-45, float("inf"), float("-inf"), float("nan"), -2.0,
-            3.4028234663852886e38, 1.1754943508222875e-38]
+# ±0, ±the smallest subnormal, ±inf, NaN, -2, ±the largest normal (biased
+# exponent 254: a reciprocal of ±0), 2^126 (exponent 253: a reciprocal at
+# the subnormal edge) and the smallest normal
+SPECIALS = [0.0, -0.0, 1e-45, -1e-45, float("inf"), float("-inf"), float("nan"), -2.0,
+            3.4028234663852886e38, -3.4028234663852886e38, 8.507059173023462e37,
+            1.1754943508222875e-38]
 # gs_softmax vs its plain version, elementwise relative at f32: expf and the
 # row sum's order differ by ulps (4.8e-7 at most on the H100, 8 times less
 # than this limit); an exact 1/sum instead of the Goldschmidt one moves a
 # row by the datapath's error, 2^-9 at (8, 0) and 2^-14 at (7, 1).
 SOFTMAX_F32_RTOL = 2.0 ** -18
 BENCH_KERNELS = ("gs_recip", "gs_rsqrt", "gs_softmax")
-# inputs that reach gs_rsqrt_kernel's other paths: contiguous views 1, 2 and 3
-# elements into their storage (not 16-byte aligned: the width-1 instance),
-# and lengths that end in a partial vector
+# inputs that reach the elementwise kernels' other paths: contiguous views 1,
+# 2 and 3 elements into their storage (not 16-byte aligned: the width-1
+# instance), and lengths that end in a partial vector of either width
 STORAGE_OFFSETS = (1, 2, 3)
-TAIL_LENGTHS = (1, 3, 5, 7, 9, 4097)
+TAIL_LENGTHS = (1, 2, 3, 4, 5, 6, 7, 9, 4097)
 
 
 def bit_equal(a, b) -> bool:
@@ -1730,10 +1746,10 @@ def time_bench_kernels():
     iters 2, feedback, f32 unless a row says otherwise, after a second of
     load; gs_recip and gs_rsqrt also at (65536, 128) (the "hbm" rows: 67 MB
     of f32 traffic a call, each call on copies cycled by ``L2Ring``, so from
-    device memory), gs_rsqrt at bf16 and at p 12 (iters 1, pipelined), where
-    the ROM is 16 KB.  The rows at (4096, 128) and below run back to back on
-    one input, which the L2 holds.  Device times twice: the profiler's,
-    and the kernel's and library call's queued back to back
+    device memory), gs_recip and gs_rsqrt at bf16 and at p 12 (iters 1,
+    pipelined), where the ROM is 16 KB.  The rows at (4096, 128) and below
+    run back to back on one input, which the L2 holds.  Device times twice:
+    the profiler's, and the kernel's and library call's queued back to back
     (``queued_ms``)."""
     from repro_torch.kernels import gs_elementwise as elementwise_kernel
     from repro_torch.kernels import gs_softmax as softmax_kernel
@@ -1749,6 +1765,9 @@ def time_bench_kernels():
     cases = [("gs_recip", "recip", (256, 128), "bench", f32, kw7),
              ("gs_recip", "recip", (4096, 128), "large", f32, kw7),
              ("gs_recip", "recip", (65536, 128), "hbm", f32, kw7),
+             ("gs_recip", "recip", (4096, 128), "large bf16", bf16, kw7),
+             ("gs_recip", "recip", (4096, 128), "large p12", f32, kw12),
+             ("gs_recip", "recip", (65536, 128), "hbm p12", f32, kw12),
              ("gs_rsqrt", "rsqrt", (256, 128), "bench", f32, kw7),
              ("gs_rsqrt", "rsqrt", (4096, 128), "large", f32, kw7),
              ("gs_rsqrt", "sqrt", (256, 128), "bench sqrt", f32, kw7),
@@ -1868,7 +1887,7 @@ def main() -> None:
     if len(flash_reported) != len(hmma):
         fail(f"{log.name} reports spills for {len(flash_reported)} flash kernel instances, "
              f"not {len(hmma)}")
-    check_rsqrt_build(lib, log.read_text(), sass_text)
+    check_elementwise_build(lib, log.read_text(), sass_text)
 
     print("== 2. kernels vs plain versions")
     worst = check_kernels()

@@ -6,8 +6,9 @@
 //
 // * ROM read: on the TPU a one-hot x table matmul; here an indexed load
 //   from the block's shared-memory copy of the 2^p-entry f32 table
-//   (stage_rom), which the host builds from core/lut.py.  p is a runtime
-//   argument (5..12).
+//   (stage_rom), which the host builds from core/lut.py, or, in the
+//   elementwise kernels, from the table itself through the read-only cache.
+//   p is a runtime argument (5..12).
 // * feedback variant: one (q, r) register pair in a runtime loop
 //   (#pragma unroll 1 over the trip count).  pipelined: a full unroll up to
 //   kMaxPipelinedIters passes, one pair per pass in the program text.

@@ -20,27 +20,25 @@
 //
 // Bound on this card: device memory.  Each element reads 4 (or 2) bytes and
 // writes 4 (or 2) per output for ~10 flops of datapath per pass, far below
-// the ~20 flops per byte where the fp32 units would bind.
+// the ~20 flops per byte where the fp32 units would bind.  Below a few MB,
+// where the L2 serves the bytes, the instructions an element issue bind.
 //
 // Every multiply and add of the peel and the iterations is __fmul_rn /
-// __fadd_rn (gs_common.cuh), so each kernel agrees bit for bit with its
-// plain PyTorch version (kernels/ref.py reciprocal, rsqrt).  The specials
-// are selected after the datapath, as the reference's jnp.where chain
-// selects them.
+// __fadd_rn / __fsub_rn (gs_common.cuh), so each kernel agrees bit for bit
+// with its plain PyTorch version (kernels/ref.py reciprocal, rsqrt).  The
+// specials are selected after the datapath, as the reference's jnp.where
+// chain selects them.
 //
-// gs_recip_kernel: one element a thread in a grid-stride pass of 256-thread
-// blocks, at most a few waves over the 132 SMs; each block stages the
-// 2^p-entry f32 ROM in shared memory and reads it by index (the TPU's
-// one-hot matmul).
-//
-// gs_rsqrt_kernel, redesigned for Hopper:
+// Both kernels are instances of one grid-stride loop (vector_loop) with a
+// per-vector operation (recip_vec, rsqrt_vec):
 // * Each thread takes one 16-byte vector (4 f32 or 8 bf16) a trip, loaded
 //   through the read-only path, and runs every element of it as an
 //   independent chain: the feedback loop's trips each advance all of the
-//   vector's (g, h) pairs.  The next trip's vector is loaded before this
-//   one is computed, so two loads a thread are in flight.  The host takes
-//   this instance only when x and the outputs are 16-byte aligned, and
-//   otherwise the same kernel at width 1.
+//   vector's pairs.  The next trip's vector is loaded before this one is
+//   computed, so two loads a thread are in flight.  The host takes this
+//   instance only when x and the outputs are 16-byte aligned, and otherwise
+//   the same kernel at width 1; a vector launch's n % width tail runs at
+//   width 1.
 // * The grid is min(vectors / threads, SMs x resident blocks), from the
 //   device's SM count and the instance's occupancy (the wrapper's plan), so
 //   a block lives for the whole grid-stride loop.
@@ -48,7 +46,8 @@
 //   cache, where the 2^p-entry table stays in each SM's L1: no copy, no
 //   barrier, no shared memory.  On an H100 this was as fast as a shared
 //   copy filled once a block at p 7 and 12, or faster (PERF.md, PR 22).
-// * mode is a template parameter: each instance stores only what it writes.
+// * The operation (and rsqrt's mode) is a template parameter: each instance
+//   stores only what it writes.
 #include <cstdint>
 #include <cstring>
 
@@ -56,38 +55,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;  // a few waves over the card's 132 SMs
-constexpr int kSignBit = static_cast<int>(0x80000000u);
+constexpr int kThreads = 128;  // gs_elementwise.THREADS
+constexpr unsigned kSignBit = 0x80000000u;
 constexpr int kInfBits = 0x7F800000;
 constexpr int kNanBits = 0x7FC00000;  // the canonical NaN torch and jnp write
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gs_recip_kernel(const T* __restrict__ x, const float* __restrict__ rom_g,
-                T* __restrict__ out, int64_t n, int p, int iters, int pipelined) {
-  extern __shared__ float s_rom[];
-  gs::stage_rom(s_rom, rom_g, p);
-  const gs::Rom rom{s_rom, p, iters, pipelined, 0.0f};
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x; i < n;
-       i += stride) {
-    const float xv = gs::to_f32(x[i]);
-    const int sign = __float_as_int(xv) & kSignBit;
-    const int e = gs::biased_exp(xv);
-    const int mant = gs::mantissa_bits(xv);
-    const float q = gs::gs_recip_core(gs::mantissa_to_m(mant), mant, rom);
-    // 1/x = q * 2^-E: the biased exponent of 2^-E is 254 - e
-    float o = __int_as_float(__float_as_int(__fmul_rn(q, gs::pow2_from_biased(254 - e))) | sign);
-    if (e == 0) o = __int_as_float(sign | kInfBits);
-    if (e == 255) o = __int_as_float(mant == 0 ? sign : kNanBits);
-    out[i] = gs::from_f32<T>(o);
-  }
-}
-
-// -- gs_rsqrt_kernel -----------------------------------------------------------
-
-constexpr int kRsqrtThreads = 128;  // gs_elementwise.RSQRT_THREADS
 
 // kWidth elements of T, one 16-byte vector when kWidth > 1.
 template <typename T, int kWidth>
@@ -119,6 +90,132 @@ __device__ __forceinline__ void store_vec(T* __restrict__ out, int64_t v,
     reinterpret_cast<uint4*>(out)[v] = raw;
   }
 }
+
+// `iters` passes of `step` over kWidth independent (a, b) chains: feedback in
+// a runtime loop, pipelined unrolled up to gs::kMaxPipelinedIters.
+template <int kWidth, typename Step>
+__device__ __forceinline__ void iterate(int iters, int pipelined, float (&a)[kWidth],
+                                        float (&b)[kWidth], Step step) {
+  if (pipelined) {
+#pragma unroll
+    for (int i = 0; i < gs::kMaxPipelinedIters; ++i)
+      if (i < iters) {
+#pragma unroll
+        for (int j = 0; j < kWidth; ++j) step(a[j], b[j]);
+      }
+  } else {
+#pragma unroll 1
+    for (int i = 0; i < iters; ++i) {
+#pragma unroll
+      for (int j = 0; j < kWidth; ++j) step(a[j], b[j]);
+    }
+  }
+}
+
+// The grid-stride loop every kernel here runs over x's n elements: thread t
+// takes the kWidth-element vectors t, t + stride, ..., loads the next before
+// op(vector, v) computes and stores vector v, and a vector launch's last
+// n % kWidth elements go one a thread at width 1.
+template <int kWidth, typename T, typename Op>
+__device__ __forceinline__ void vector_loop(const T* __restrict__ x, int64_t n, const Op& op) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t nvec = n / kWidth;
+  Vec<T, kWidth> cur, nxt;
+  if (first < nvec) cur = load_vec<T, kWidth>(x, first);
+  for (int64_t v = first; v < nvec; v += stride) {
+    if (v + stride < nvec) nxt = load_vec<T, kWidth>(x, v + stride);
+    op(cur, v);
+    cur = nxt;
+  }
+  const int64_t i = nvec * kWidth + first;
+  if (kWidth > 1 && i < n) op(load_vec<T, 1>(x, i), i);
+}
+
+// -- recip ---------------------------------------------------------------------
+
+struct RecipArgs {
+  const float* table;  // the ROM, moved back by 127 * 2^p entries (recip_vec)
+  int shift;           // 23 - p
+  int iters;
+  int pipelined;
+};
+
+// 1/x on the kWidth elements of `in`, each an independent chain.  Bit for
+// bit the reference's arithmetic (ref.reciprocal, gs_common.cuh
+// gs_recip_core), with few integer instructions:
+// * se = x's sign and exponent bits, and m = x's bits ^ se ^ the exponent
+//   field 127: the mantissa under exponent 0, in [1, 2);
+// * the ROM index (bits >> (23 - p)) & (2^p - 1) is m's bits >> (23 - p)
+//   less 127 * 2^p, the exponent field 127 above the index bits: the kernel
+//   moves the table pointer back by 127 * 2^p entries once, and no element
+//   pays for the mask;
+// * 1/x = q * 2^(127 - e) with x's sign, q in (1/2, 1].  The scale's biased
+//   exponent 254 - e lies in [0, 253] for e in [1, 254], so 0x7F000000 - se
+//   is the scale with no clamp, and it carries x's sign: for x < 0 the
+//   subtraction borrows into the sign bit (0x7F000000 - 0x80000000 -
+//   (e << 23) = 0x80000000 | (254 - e) << 23).  A product with -s is the
+//   product with s, rounded alike and negated: the reference's sign OR.
+//   e = 254 gives the ±0 that pow2_from_biased(0) gives; at e = 253 the
+//   product is the subnormal that the reference also rounds to;
+// * bits 24-30 of the scale are all set only for e = 0 (0x7F000000 or
+//   0xFF000000) and e = 255 (0xFF800000 or 0x7F800000): for e in [1, 254]
+//   the scale's magnitude is at most 253 << 23.  So one test finds a zero,
+//   subnormal, inf or NaN, and only a vector that holds one takes the
+//   specials' branch, which applies them in the reference's order.
+template <typename T, int kWidth>
+__device__ __forceinline__ Vec<T, kWidth> recip_vec(const Vec<T, kWidth>& in,
+                                                    const RecipArgs& a) {
+  unsigned bits[kWidth];
+  float q[kWidth], r[kWidth];
+#pragma unroll
+  for (int j = 0; j < kWidth; ++j) {
+    bits[j] = __float_as_uint(gs::to_f32(in.e[j]));
+    const unsigned se = bits[j] & 0xFF800000u;
+    const unsigned m = bits[j] ^ se ^ gs::kOneBits;
+    q[j] = __ldg(a.table + (m >> a.shift));
+    r[j] = __fmul_rn(__uint_as_float(m), q[j]);
+  }
+  iterate<kWidth>(a.iters, a.pipelined, q, r, [](float& qj, float& rj) {
+    gs::recip_step(qj, rj);
+  });
+  float o[kWidth];
+  bool special = false;
+#pragma unroll
+  for (int j = 0; j < kWidth; ++j) {
+    const unsigned scale = 0x7F000000u - (bits[j] & 0xFF800000u);
+    special |= (~scale & 0x7F000000u) == 0;
+    o[j] = __fmul_rn(q[j], __uint_as_float(scale));
+  }
+  if (special) {
+#pragma unroll
+    for (int j = 0; j < kWidth; ++j) {
+      const unsigned e = (bits[j] >> 23) & gs::kExpMask;
+      const unsigned mant = bits[j] & gs::kMantMask;
+      const unsigned sign = bits[j] & kSignBit;
+      if (e == 0) o[j] = __uint_as_float(sign | kInfBits);
+      if (e == 255 && mant == 0) o[j] = __uint_as_float(sign);
+      if (e == 255 && mant != 0) o[j] = __int_as_float(kNanBits);
+    }
+  }
+  Vec<T, kWidth> out;
+#pragma unroll
+  for (int j = 0; j < kWidth; ++j) out.e[j] = gs::from_f32<T>(o[j]);
+  return out;
+}
+
+template <typename T>
+struct RecipOp {
+  T* out;
+  RecipArgs a;
+
+  template <int kWidth>
+  __device__ __forceinline__ void operator()(const Vec<T, kWidth>& in, int64_t v) const {
+    store_vec<T, kWidth>(out, v, recip_vec(in, a));
+  }
+};
+
+// -- rsqrt / sqrt --------------------------------------------------------------
 
 struct RsqrtArgs {
   float last;         // 2^p - 1, the largest ROM index
@@ -161,20 +258,9 @@ __device__ __forceinline__ void rsqrt_vec(const Vec<T, kWidth>& in,
     h[j] = __fmul_rn(0.5f, y0);
     special |= bits[j] - 0x00800000u >= 0x7F000000u;
   }
-  if (a.pipelined) {
-#pragma unroll
-    for (int i = 0; i < gs::kMaxPipelinedIters; ++i)
-      if (i < a.iters) {
-#pragma unroll
-        for (int j = 0; j < kWidth; ++j) gs::rsqrt_step(g[j], h[j]);
-      }
-  } else {
-#pragma unroll 1
-    for (int i = 0; i < a.iters; ++i) {
-#pragma unroll
-      for (int j = 0; j < kWidth; ++j) gs::rsqrt_step(g[j], h[j]);
-    }
-  }
+  iterate<kWidth>(a.iters, a.pipelined, g, h, [](float& gj, float& hj) {
+    gs::rsqrt_step(gj, hj);
+  });
   float rs[kWidth], sq[kWidth];
 #pragma unroll
   for (int j = 0; j < kWidth; ++j) {
@@ -206,123 +292,113 @@ __device__ __forceinline__ void rsqrt_vec(const Vec<T, kWidth>& in,
   }
 }
 
+template <typename T, int kMode>
+struct RsqrtOp {
+  const float* table;
+  T* out0;
+  T* out1;
+  RsqrtArgs a;
+
+  template <int kWidth>
+  __device__ __forceinline__ void operator()(const Vec<T, kWidth>& in, int64_t v) const {
+    Vec<T, kWidth> o0, o1;
+    rsqrt_vec<kMode>(in, table, a, o0, o1);
+    store_vec<T, kWidth>(out0, v, o0);
+    if constexpr (kMode == 2) store_vec<T, kWidth>(out1, v, o1);
+  }
+};
+
+// -- the kernels ---------------------------------------------------------------
+
+// Every instance takes the same arguments, so that one table (instance)
+// serves the launch and the occupancy query; gs_recip_kernel ignores out1
+// and rsqrt_scale.
+template <typename T, int kWidth>
+__global__ void __launch_bounds__(kThreads)
+gs_recip_kernel(const T* __restrict__ x, const float* __restrict__ rom_g,
+                T* __restrict__ out, T* __restrict__, int64_t n, int p, int iters,
+                int pipelined, float) {
+  // rom_g - 127 * 2^p entries, as an address: it lies outside the table
+  const auto base = reinterpret_cast<uintptr_t>(rom_g) - (uintptr_t{127} << p) * sizeof(float);
+  const RecipArgs args{reinterpret_cast<const float*>(base), 23 - p, iters, pipelined};
+  vector_loop<kWidth>(x, n, RecipOp<T>{out, args});
+}
+
 template <typename T, int kMode, int kWidth>
-__global__ void __launch_bounds__(kRsqrtThreads)
+__global__ void __launch_bounds__(kThreads)
 gs_rsqrt_kernel(const T* __restrict__ x, const float* __restrict__ rom_g,
                 T* __restrict__ out0, T* __restrict__ out1, int64_t n, int p, int iters,
                 int pipelined, float rsqrt_scale) {
   const RsqrtArgs args{static_cast<float>((1 << p) - 1), iters, pipelined, rsqrt_scale};
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kRsqrtThreads;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kRsqrtThreads + threadIdx.x;
-  const int64_t nvec = n / kWidth;
-  Vec<T, kWidth> cur, nxt, o0, o1;
-  if (first < nvec) cur = load_vec<T, kWidth>(x, first);
-  for (int64_t v = first; v < nvec; v += stride) {
-    if (v + stride < nvec) nxt = load_vec<T, kWidth>(x, v + stride);
-    rsqrt_vec<kMode>(cur, rom_g, args, o0, o1);
-    store_vec<T, kWidth>(out0, v, o0);
-    if constexpr (kMode == 2) store_vec<T, kWidth>(out1, v, o1);
-    cur = nxt;
-  }
-  // the n % kWidth elements after the last whole vector
-  const int64_t i = nvec * kWidth + first;
-  if (kWidth > 1 && i < n) {
-    Vec<T, 1> t0, t1;
-    rsqrt_vec<kMode>(load_vec<T, 1>(x, i), rom_g, args, t0, t1);
-    store_vec<T, 1>(out0, i, t0);
-    if constexpr (kMode == 2) store_vec<T, 1>(out1, i, t1);
-  }
+  vector_loop<kWidth>(x, n, RsqrtOp<T, kMode>{rom_g, out0, out1, args});
 }
 
 template <typename T>
-using RsqrtKernel = void (*)(const T*, const float*, T*, T*, int64_t, int, int, int, float);
+using Kernel = void (*)(const T*, const float*, T*, T*, int64_t, int, int, int, float);
 
-// The instance for (mode, vector), or nullptr for a mode out of range.
-// vector: 16-byte vectors (4 f32 or 8 bf16 a thread), else width 1.
+// The instance for (op, vector), or nullptr for an op out of range.  op: 0
+// recip, 1 rsqrt, 2 sqrt, 3 sqrt_both (gs_elementwise.OPS); vector: 16-byte
+// vectors (4 f32 or 8 bf16 a thread), else width 1.
 template <typename T>
-RsqrtKernel<T> rsqrt_instance(int mode, int vector) {
+Kernel<T> instance(int op, int vector) {
   constexpr int kVec = sizeof(uint4) / sizeof(T);
-  switch (mode * 2 + (vector ? 1 : 0)) {
-    case 0: return gs_rsqrt_kernel<T, 0, 1>;
-    case 1: return gs_rsqrt_kernel<T, 0, kVec>;
-    case 2: return gs_rsqrt_kernel<T, 1, 1>;
-    case 3: return gs_rsqrt_kernel<T, 1, kVec>;
-    case 4: return gs_rsqrt_kernel<T, 2, 1>;
-    case 5: return gs_rsqrt_kernel<T, 2, kVec>;
+  switch (op * 2 + (vector ? 1 : 0)) {
+    case 0: return gs_recip_kernel<T, 1>;
+    case 1: return gs_recip_kernel<T, kVec>;
+    case 2: return gs_rsqrt_kernel<T, 0, 1>;
+    case 3: return gs_rsqrt_kernel<T, 0, kVec>;
+    case 4: return gs_rsqrt_kernel<T, 1, 1>;
+    case 5: return gs_rsqrt_kernel<T, 1, kVec>;
+    case 6: return gs_rsqrt_kernel<T, 2, 1>;
+    case 7: return gs_rsqrt_kernel<T, 2, kVec>;
     default: return nullptr;
   }
 }
 
 template <typename T>
-int rsqrt_launch(const void* x, const void* rom, void* out0, void* out1, long long n, int p,
-                 int iters, int pipelined, float rsqrt_scale, int mode, int vector, int grid,
-                 cudaStream_t s) {
-  const RsqrtKernel<T> kernel = rsqrt_instance<T>(mode, vector);
+int launch(int op, const void* x, const void* rom, void* out0, void* out1, long long n, int p,
+           int iters, int pipelined, float rsqrt_scale, int vector, int grid,
+           cudaStream_t s) {
+  const Kernel<T> kernel = instance<T>(op, vector);
   if (kernel == nullptr || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<grid, kRsqrtThreads, 0, s>>>(
+  kernel<<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const float*>(rom), static_cast<T*>(out0),
       static_cast<T*>(out1), n, p, iters, pipelined, rsqrt_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int rsqrt_occupancy(int mode, int vector, int* blocks) {
-  const RsqrtKernel<T> kernel = rsqrt_instance<T>(mode, vector);
+int occupancy(int op, int vector, int* blocks) {
+  const Kernel<T> kernel = instance<T>(op, vector);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, kernel, kRsqrtThreads, 0));
-}
-
-int grid_for(int64_t n) {
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  return static_cast<int>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+      blocks, kernel, kThreads, 0));
 }
 
 }  // namespace
 
-// x, out: n contiguous f32 or bf16 (is_bf16); rom: (2^p,) f32 reciprocal
-// table.  Returns cudaGetLastError().
-extern "C" int gs_recip_launch(const void* x, const void* rom, void* out, long long n,
-                               int p, int iters, int pipelined, int is_bf16,
-                               void* stream) {
-  if (n == 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = (1u << p) * sizeof(float);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    gs_recip_kernel<__nv_bfloat16><<<grid_for(n), kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(rom),
-        static_cast<__nv_bfloat16*>(out), n, p, iters, pipelined);
-  } else {
-    gs_recip_kernel<float><<<grid_for(n), kThreads, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(rom),
-        static_cast<float*>(out), n, p, iters, pipelined);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// x, out0, out1: n >= 1 contiguous f32 or bf16 (is_bf16); rom: (2^p,) f32
-// rsqrt table; rsqrt_scale = f32(2^p / 3); mode 0 rsqrt ->
-// out0, 1 sqrt -> out0, 2 sqrt -> out0 and rsqrt -> out1 (out1 is unused
-// otherwise).  vector: x, out0 and out1 are 16-byte aligned and the kernel
-// moves 16-byte vectors; grid: blocks of kRsqrtThreads (the wrapper's plan).
-// Returns cudaGetLastError().
-extern "C" int gs_rsqrt_launch(const void* x, const void* rom, void* out0, void* out1,
-                               long long n, int p, int iters, int pipelined,
-                               float rsqrt_scale, int mode, int is_bf16, int vector, int grid,
-                               void* stream) {
+// op: 0 recip (rom: the (2^p,) f32 reciprocal table; out0), 1 rsqrt, 2 sqrt,
+// 3 sqrt and rsqrt -> out0, out1 (rom: the rsqrt table; rsqrt_scale =
+// f32(2^p / 3)).  x and the outputs: n >= 1 contiguous f32 or bf16
+// (is_bf16); out1 is unused but for op 3.  vector: x and every output are
+// 16-byte aligned and the kernel moves 16-byte vectors; grid: blocks of
+// kThreads (the wrapper's plan).  Returns cudaGetLastError().
+extern "C" int gs_elementwise_launch(int op, const void* x, const void* rom, void* out0,
+                                     void* out1, long long n, int p, int iters, int pipelined,
+                                     float rsqrt_scale, int is_bf16, int vector, int grid,
+                                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return rsqrt_launch<__nv_bfloat16>(x, rom, out0, out1, n, p, iters, pipelined,
-                                       rsqrt_scale, mode, vector, grid, s);
-  return rsqrt_launch<float>(x, rom, out0, out1, n, p, iters, pipelined, rsqrt_scale, mode,
-                             vector, grid, s);
+    return launch<__nv_bfloat16>(op, x, rom, out0, out1, n, p, iters, pipelined, rsqrt_scale,
+                                 vector, grid, s);
+  return launch<float>(op, x, rom, out0, out1, n, p, iters, pipelined, rsqrt_scale, vector,
+                       grid, s);
 }
 
-// The blocks of the (mode, is_bf16, vector) instance of gs_rsqrt_kernel that
-// one SM holds at once, into *blocks
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current device).
-// Returns its cudaError_t.
-extern "C" int gs_rsqrt_occupancy(int mode, int is_bf16, int vector, int* blocks) {
-  return is_bf16 ? rsqrt_occupancy<__nv_bfloat16>(mode, vector, blocks)
-                 : rsqrt_occupancy<float>(mode, vector, blocks);
+// The blocks of the (op, is_bf16, vector) instance that one SM holds at
+// once, into *blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the
+// current device).  Returns its cudaError_t.
+extern "C" int gs_elementwise_occupancy(int op, int is_bf16, int vector, int* blocks) {
+  return is_bf16 ? occupancy<__nv_bfloat16>(op, vector, blocks)
+                 : occupancy<float>(op, vector, blocks);
 }

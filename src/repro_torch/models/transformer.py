@@ -4,7 +4,7 @@ The reference scans a stacked layer axis; here ``_stack`` is a Python loop
 over a list of per-layer parameter dicts, and decode states are a list of
 per-layer ``{"k", "v"}`` caches of shape (b, S, KH, hd).  The reference
 wraps the scanned body in ``jax.checkpoint`` for training (remat); that
-changes no number and is not ported yet (ROADMAP A7).
+changes no number, and the port leaves it out.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ reciprocal replace the sqrt and the divide.  Its bias corrections and the
 learning rate reach it as one device operand, computed as the reference's
 kernel route computes them (an f32 ``1/(1 - β^t)``).  The reference's jnp
 route, which takes the bias corrections through the policy's reciprocal,
-is not ported (ROADMAP A7).
+is not ported: the port follows the kernel route.
 
 Parameters are a tree of dicts and lists of tensors (the model's); the
 optimizer state is f32 ``m``, ``v`` of the same tree and an int32 step

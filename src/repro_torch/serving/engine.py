@@ -25,9 +25,10 @@
   included, so an idle slot's operands (``cur = 0``, ``last_tok = 0``) are
   part of the computation, as in the reference.
 
-Not ported yet (ROADMAP A8, A10): the paged pool and prefix reuse,
-stochastic and top-k sampling, deadlines, cancellation, retries,
-preemption, fault injection, tracing, the static scheduler and the mesh.
+Not ported yet: the paged pool and prefix reuse (ROADMAP A8), stochastic
+and top-k sampling (A10a), deadlines, cancellation, retries, preemption
+and fault injection (A10b), tracing (A11), the static scheduler (A12b) and
+the mesh (A13).
 """
 
 from __future__ import annotations

@@ -463,6 +463,30 @@ def _offset_view(x: torch.Tensor, offset: int) -> torch.Tensor:
     return view
 
 
+# the bit patterns of ±0, ±the smallest bf16 subnormal, the smallest normal,
+# a biased exponent of 253 and 254 (the reciprocal's subnormal and ±0) and
+# 255 (±inf, NaN of both signs), each exact in bf16
+SPECIAL_BITS = [0x00000000, 0x80000000, 0x00010000, 0x80010000, 0x00800000, 0x80800000,
+                0x7E800000, 0xFEC00000, 0x7F000000, 0xFF400000, 0x7F800000, 0xFF800000,
+                0x7FC00000, 0xFFC10000]
+
+
+def _plan_inputs(device, dtype):
+    """The inputs that reach the kernels' other paths: (256, 128) views 1, 2
+    and 3 elements into their storage (the width-1 instance), lengths that
+    end in a partial vector of either width, and (65536, 128), where a
+    thread makes many trips."""
+    xs = _elementwise_inputs(device)
+    inputs = [_offset_view(xs[0].to(dtype), off) for off in (1, 2, 3)]
+    inputs += [xs[2].to(dtype).flatten()[:n] for n in (1, 2, 3, 4, 5, 6, 7, 9, 4097)]
+    g = torch.Generator(device=device).manual_seed(11)
+    shape = (65536, 128)
+    mag = torch.exp2(120 * torch.rand(shape, generator=g, device=device) - 60)
+    sign = torch.where(torch.rand(shape, generator=g, device=device) < 0.5, -1.0, 1.0)
+    inputs.append((mag * sign).to(dtype))
+    return inputs
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,p,iters,variant", ELEMENTWISE_PRECISIONS)
 def test_rsqrt_kernel_on_offsets_tails_and_many_trips_is_bit_equal(cuda_device, dtype, p,
@@ -472,15 +496,7 @@ def test_rsqrt_kernel_on_offsets_tails_and_many_trips_is_bit_equal(cuda_device, 
     grid-stride loop ((65536, 128), many trips a thread), in all three
     modes, one launch a call; an empty tensor makes none."""
     kw = dict(p=p, iters=iters, variant=variant)
-    xs = _elementwise_inputs(cuda_device)
-    inputs = [_offset_view(xs[0].to(dtype), off) for off in (1, 2, 3)]
-    inputs += [xs[2].to(dtype).flatten()[:n] for n in (1, 3, 5, 7, 9, 4097)]
-    g = torch.Generator(device=cuda_device).manual_seed(11)
-    shape = (65536, 128)
-    mag = torch.exp2(120 * torch.rand(shape, generator=g, device=cuda_device) - 60)
-    sign = torch.where(torch.rand(shape, generator=g, device=cuda_device) < 0.5, -1.0, 1.0)
-    inputs.append((mag * sign).to(dtype))
-    for x in inputs:
+    for x in _plan_inputs(cuda_device, dtype):
         for mode in ("rsqrt", "sqrt", "sqrt_both"):
             before = elementwise_kernel.launches_rsqrt
             got = elementwise_kernel.gs_rsqrt(x, mode=mode, **kw)
@@ -498,15 +514,46 @@ def test_rsqrt_kernel_on_offsets_tails_and_many_trips_is_bit_equal(cuda_device, 
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,p,iters,variant", ELEMENTWISE_PRECISIONS)
+def test_recip_kernel_on_offsets_tails_specials_and_many_trips_is_bit_equal(
+        cuda_device, dtype, p, iters, variant):
+    """gs_recip_kernel's width-1 instance, its tails of every length below
+    a vector, its grid-stride loop, and the specials at biased exponents 0,
+    253, 254 and 255 of both signs, alone and spread over vectors of normal
+    numbers; one launch a call, none for an empty tensor."""
+    kw = dict(p=p, iters=iters, variant=variant)
+    specials = torch.from_numpy(np.array(SPECIAL_BITS, dtype=np.uint32).view(np.float32))
+    specials = specials.to(cuda_device)
+    spread = _elementwise_inputs(cuda_device)[0].flatten()[:1024].clone()
+    spread[::7][:len(SPECIAL_BITS)] = specials
+    inputs = _plan_inputs(cuda_device, dtype) + [specials.to(dtype), spread.to(dtype)]
+    for x in inputs:
+        before = elementwise_kernel.launches_recip
+        got = elementwise_kernel.gs_recip(x, **kw)
+        assert elementwise_kernel.launches_recip == before + 1
+        assert _bit_equal(got, ref.reciprocal(x, **kw)), (tuple(x.shape), x.storage_offset())
+    if dtype == torch.float32:
+        bits = elementwise_kernel.gs_recip(specials, **kw).cpu().numpy().view(np.uint32)
+        # ±inf from ±0, ±0 at e = 254, at most 2^-126 at e = 253, the canonical NaN
+        assert list(bits[[0, 1, 8, 9, 12, 13]]) == [0x7F800000, 0xFF800000, 0, 0x80000000,
+                                                    0x7FC00000, 0x7FC00000]
+        assert 0 < bits[6] <= 0x00800000
+    before = elementwise_kernel.launches_recip
+    empty = torch.empty(0, 128, dtype=dtype, device=cuda_device)
+    assert elementwise_kernel.gs_recip(empty, **kw).shape == empty.shape
+    assert elementwise_kernel.launches_recip == before
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_rsqrt_launch_plan_on_the_card(cuda_device):
-    """Every gs_rsqrt_kernel instance fits on an SM, and a large call's grid
-    is one wave of resident blocks on the card's SMs."""
+    """Every gs_rsqrt_kernel and gs_recip_kernel instance fits on an SM, and
+    a large call's grid is one wave of resident blocks on the card's SMs."""
     card_sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    for mode in elementwise_kernel.MODES:
+    for op in elementwise_kernel.OPS:
         for is_bf16, vec in ((False, 4), (True, 8)):
             for width in (1, vec):
-                sms, resident = elementwise_kernel.grid_limits(cuda_device, mode, is_bf16,
-                                                               width)
+                sms, resident = elementwise_kernel.grid_limits(cuda_device, op, is_bf16, width)
                 assert sms == card_sms and resident >= 1
                 assert elementwise_kernel.grid_size(65536 * 128, width, sms,
                                                     resident) == sms * resident
