@@ -13,9 +13,17 @@ Phases, in order; any failure exits nonzero before the last line:
    registers and SASS instructions of each of gs_recip_kernel's 4 and
    gs_rsqrt_kernel's 12 instances, failing on a spill, on shared memory or
    a barrier in one, or on a 16-byte vector instance without 16-byte loads
-   through the read-only path and stores (LDG.E.128.CONSTANT / STG.E.128).
+   through the read-only path and stores (LDG.E.128.CONSTANT / STG.E.128);
+   the registers, shared memory and SASS instructions of each of
+   gs_rmsnorm_kernel's 19 instances, failing on a spill, on shared memory
+   beyond its per-warp partial sums (static plus the launch's dynamic part;
+   a staged ROM copy would be more), or on a 16-byte vector instance
+   without LDG.E.128 and STG.E.128.
 2. Kernels vs their plain PyTorch versions on the card: gs_rmsnorm at
-   (rows, 2048), flash attention at (1, 32, S, 64) / (1, 4, S, 64), f32 and
+   (rows, 2048), and with its rsqrt column (within 2^-20 relative) on each
+   launch plan: rows 1 and 2048, d 37, 200, 8192, 16392 and 4097 (the last
+   two past the register plans), a view one element into its storage and a
+   row of zeros; flash attention at (1, 32, S, 64) / (1, 4, S, 64), f32 and
    bf16, held to the reference's ERR_BOUNDS (f32 2^-15, bf16 2^-4), and at
    f32, S 333 and 512, within 10x the plain f32 version's max |error|
    against the plain version run in f64 (the forward's products are three
@@ -36,7 +44,12 @@ Phases, in order; any failure exits nonzero before the last line:
    fp32 params) on the same trace, whose tokens must be valid.  Both runs
    must launch gs_rmsnorm 45 x (prefills + decode ticks) times and flash
    attention 22 x prefills times.
-4. Timing at the main paths' shapes: each kernel, its plain version and
+4. Timing at the main paths' shapes: gs_rmsnorm at decode (4, 2048),
+   prefill (333, 2048) at f32, bf16 and p 12, and the training batch
+   (2048, 2048) with the rsqrt column at f32 and bf16 on copies cycled past
+   the L2, device time queued back to back (``queued_ms``) beside
+   ``F.rms_norm`` and the bytes bound, with the SM and memory clocks
+   nvidia-smi samples meanwhile; then each kernel, its plain version and
    one PyTorch call computing the same function (``F.rms_norm`` x gain;
    ``F.scaled_dot_product_attention`` on heads expanded beforehand, and its
    backward for dq and dk/dv; ``torch.optim.AdamW(fused=True).step()``) as
@@ -205,69 +218,107 @@ def elementwise_instance_name(found) -> str:
             f"width {width}>")
 
 
-def elementwise_sass_counts(sass_text: str) -> dict:
-    """16-byte loads through the read-only path and 16-byte stores
-    (LDG.E.128.CONSTANT / STG.E.128), shared-memory and barrier instructions,
-    and the instructions (NOP padding aside) in each instance of
-    gs_recip_kernel and gs_rsqrt_kernel, from the library's SASS."""
-    ops = {"LDG.E.128.CONSTANT": r"\bLDG\.E\.128\.CONSTANT\b",
-           "STG.E.128": r"\bSTG\.E\.128\b", "shared/barrier": r"\b(?:LDS|STS|BAR)\b"}
-    counts, name = {}, None
-    for line in sass_text.splitlines():
-        if "Function :" in line:
-            found = ELEMENTWISE_INSTANCE.search(line)
-            name = elementwise_instance_name(found) if found else None
-            if name:
-                counts[name] = {**{op: 0 for op in ops}, "instructions": 0}
-        elif name and re.search(r"/\*[0-9a-f]{4}\*/\s+\S", line) and "NOP" not in line:
-            counts[name]["instructions"] += 1
-            for op, pattern in ops.items():
-                counts[name][op] += bool(re.search(pattern, line))
-    return counts
-
-
-def elementwise_registers(log_text: str) -> dict:
-    """Registers and spill bytes of each gs_recip_kernel and gs_rsqrt_kernel
-    instance, from the build's ``-Xptxas -v`` report."""
-    found, report = None, {}
+def instance_report(pattern, name_of, ops: dict, log_text: str, sass_text: str) -> dict:
+    """Registers, spill bytes and static shared memory (the build's
+    ``-Xptxas -v`` report), and the SASS instructions (NOP padding aside)
+    and the instructions matching each of ``ops``' patterns, of each kernel
+    instance whose mangled name matches ``pattern``, named by ``name_of``."""
+    report, name = {}, None
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
-            found = ELEMENTWISE_INSTANCE.search(line)
-            if found:
-                report[elementwise_instance_name(found)] = {}
-        elif found:
-            name = elementwise_instance_name(found)
+            found = pattern.search(line)
+            name = name_of(found) if found else None
+            if name:
+                report[name] = {"smem": 0}
+        elif name:
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
             if spill:
                 report[name]["spill"] = int(spill.group(1)) + int(spill.group(2))
             if regs:
                 report[name]["registers"] = int(regs.group(1))
+            if smem:
+                report[name]["smem"] = int(smem.group(1))
+    name = None
+    for line in sass_text.splitlines():
+        if "Function :" in line:
+            found = pattern.search(line)
+            name = name_of(found) if found else None
+            if name:
+                report.setdefault(name, {}).update({op: 0 for op in ops}, instructions=0)
+        elif name and re.search(r"/\*[0-9a-f]{4}\*/\s+\S", line) and "NOP" not in line:
+            report[name]["instructions"] += 1
+            for op, op_pattern in ops.items():
+                report[name][op] += bool(re.search(op_pattern, line))
     return report
 
 
 def check_elementwise_build(lib: Path, log_text: str, sass_text: str) -> None:
     """Phase 1 for gs_recip_kernel and gs_rsqrt_kernel: every instance's
     registers and SASS instructions; no spill, no shared memory and no
-    barrier in any, and 16-byte loads and stores in each vector instance."""
-    regs = elementwise_registers(log_text)
-    vec = elementwise_sass_counts(sass_text)
-    for name in sorted(regs):
-        print(f"  {name}: {regs[name].get('registers')} registers, "
-              f"{regs[name].get('spill')} bytes spilled; {vec.get(name)}")
-    found = {k: sum(name.startswith(f"gs_{k}_kernel<") for name in regs)
+    barrier in any, and 16-byte loads through the read-only path and
+    16-byte stores (LDG.E.128.CONSTANT / STG.E.128) in each vector
+    instance."""
+    ops = {"LDG.E.128.CONSTANT": r"\bLDG\.E\.128\.CONSTANT\b",
+           "STG.E.128": r"\bSTG\.E\.128\b", "shared/barrier": r"\b(?:LDS|STS|BAR)\b"}
+    report = instance_report(ELEMENTWISE_INSTANCE, elementwise_instance_name, ops, log_text,
+                             sass_text)
+    for name in sorted(report):
+        print(f"  {name}: {report[name]}")
+    found = {k: sum(name.startswith(f"gs_{k}_kernel<") for name in report)
              for k in ELEMENTWISE_INSTANCES}
-    if found != ELEMENTWISE_INSTANCES or set(vec) != set(regs):
+    if found != ELEMENTWISE_INSTANCES:
         fail(f"expected {ELEMENTWISE_INSTANCES} instances of gs_recip_kernel / gs_rsqrt_kernel "
-             f"in {lib.name}'s report and SASS, found {sorted(regs)} and {sorted(vec)}")
-    for name, r in regs.items():
-        if "registers" not in r or r.get("spill") != 0:
-            fail(f"{name} spills or has no register report: {r}")
-        if vec[name]["shared/barrier"]:
-            fail(f"{name} uses shared memory or a barrier: {vec[name]}")
-        if not name.endswith("width 1>") and not (vec[name]["LDG.E.128.CONSTANT"]
-                                                   and vec[name]["STG.E.128"]):
-            fail(f"{name} lacks 16-byte loads or stores: {vec[name]}")
+             f"in {lib.name}'s report and SASS, found {sorted(report)}")
+    for name, r in report.items():
+        if "registers" not in r or r.get("spill") != 0 or "instructions" not in r:
+            fail(f"{name} spills or has no register report or SASS: {r}")
+        if r["smem"] or r["shared/barrier"]:
+            fail(f"{name} uses shared memory or a barrier: {r}")
+        if not name.endswith("width 1>") and not (r["LDG.E.128.CONSTANT"] and r["STG.E.128"]):
+            fail(f"{name} lacks 16-byte loads or stores: {r}")
+
+
+# gs_rmsnorm_kernel<T, width, vecs> as it is mangled
+RMSNORM_INSTANCE = re.compile(r"gs_rmsnorm_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)EE")
+# vecs 0 (the loop), 1, 2, 4, 8 at both widths, bf16 16-byte vectors up to 4
+RMSNORM_INSTANCES = 19
+# the launch's dynamic shared memory (csrc/gs_rmsnorm.cu, launch<T>)
+RMSNORM_DYNAMIC_SMEM = 0
+
+
+def rmsnorm_instance_name(found) -> str:
+    dtype, width, vecs = found.groups()
+    return (f"gs_rmsnorm_kernel<{'float' if dtype == 'f' else 'bf16'}, width {width}, "
+            f"vecs {vecs}>")
+
+
+def check_rmsnorm_build(lib: Path, log_text: str, sass_text: str) -> None:
+    """Phase 1 for gs_rmsnorm_kernel: every instance's registers, shared
+    memory and SASS instructions; no spill, no shared memory beyond the
+    per-warp partial sums (two rows' worth, static plus the launch's dynamic
+    part: a staged ROM would be 2^p entries more), and 16-byte loads and
+    stores in each vector instance."""
+    from repro_torch.kernels import gs_rmsnorm as rms_kernel
+
+    partials = 2 * (rms_kernel.MAX_THREADS // 32) * 4
+    ops = {"LDG.E.128": r"\bLDG\.E\.128\b", "STG.E.128": r"\bSTG\.E\.128\b",
+           "LDS/STS": r"\b(?:LDS|STS)\b", "BAR": r"\bBAR\b"}
+    report = instance_report(RMSNORM_INSTANCE, rmsnorm_instance_name, ops, log_text, sass_text)
+    for name in sorted(report):
+        print(f"  {name}: {report[name]}")
+    if len(report) != RMSNORM_INSTANCES:
+        fail(f"expected {RMSNORM_INSTANCES} instances of gs_rmsnorm_kernel in {lib.name}'s "
+             f"report and SASS, found {sorted(report)}")
+    for name, r in report.items():
+        if "registers" not in r or r.get("spill") != 0 or "instructions" not in r:
+            fail(f"{name} spills or has no register report or SASS: {r}")
+        if r["smem"] + RMSNORM_DYNAMIC_SMEM > partials:
+            fail(f"{name} uses {r['smem']} + {RMSNORM_DYNAMIC_SMEM} bytes of shared memory, "
+                 f"more than the {partials} bytes of per-warp partial sums")
+        if "width 1," not in name and not (r["LDG.E.128"] and r["STG.E.128"]):
+            fail(f"{name} lacks 16-byte loads or stores: {r}")
 
 
 def cuda_ms(fn, n: int) -> float:
@@ -427,6 +478,60 @@ def under_load(seconds: float = 1.0) -> None:
 
 # -- phase 2 -------------------------------------------------------------------
 
+# gs_rmsnorm's launch plans on the card, beside the (rows, 2048) loop of
+# check_kernels: (rows, d, storage offset, a row of zeros) — one row to the
+# training batch, d 37 (the one-element instance), 200 (narrow rows,
+# several a block), 8192, 16392 past the largest register plan and 4097 past
+# the one-element plan (the looping instances), a view one element into its
+# storage (not 16-byte aligned), and a row whose ms is 0 (its rsqrt is eps's)
+RMSNORM_SHAPES = ((1, 2048, 0, False), (2048, 2048, 0, False), (5, 37, 0, False),
+                  (13, 200, 0, False), (3, 8192, 0, False), (3, 16392, 0, False),
+                  (2, 4097, 0, False), (33, 2048, 1, False), (6, 2048, 0, True))
+# each dtype with the (p, iters, variant) its accuracy budget resolves to
+# (tests/test_torch_cuda.py PRECISIONS)
+RMSNORM_PRECISIONS = {torch.float32: ((7, 2, "feedback"), (7, 2, "pipelined"),
+                                      (12, 1, "pipelined")),
+                      torch.bfloat16: ((8, 0, "feedback"), (8, 0, "pipelined"))}
+
+
+def check_rmsnorm_plans(g) -> float:
+    """gs_rmsnorm on ``RMSNORM_SHAPES`` against its plain version: y within
+    ERR_BOUNDS, the rsqrt column within 2^-20 relative, one launch a call;
+    returns the worst max |error| of y."""
+    from repro_torch.kernels import gs_rmsnorm as rms_kernel
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    worst = 0.0
+    for dtype, precisions in RMSNORM_PRECISIONS.items():
+        name = str(dtype).split(".")[-1]
+        bound = ERR_BOUNDS[name]
+        for rows, d, offset, zero_row in RMSNORM_SHAPES:
+            buf = (3 * torch.randn(rows * d + offset, generator=g, device=dev)).to(dtype)
+            x = buf[offset:].view(rows, d)
+            if zero_row:
+                x[rows // 2] = 0
+            gain = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+            plan = rms_kernel.launch_plan(d, x.element_size(),
+                                          (x.data_ptr() | gain.data_ptr()) % 16)
+            for p, iters, variant in precisions:
+                kw = dict(eps=1e-5, p=p, iters=iters, variant=variant, save_inv=True)
+                before = rms_kernel.launches
+                got, got_inv = rms_kernel.gs_rmsnorm(x, gain, **kw)
+                launched = rms_kernel.launches - before
+                want, want_inv = ref.rmsnorm(x, gain, **kw)
+                err = (got.float() - want.float()).abs().max().item()
+                inv_err = ((got_inv - want_inv).abs() / want_inv).max().item()
+                print(f"  gs_rmsnorm {name} ({rows}, {d}) offset {offset}"
+                      f"{' zero row' if zero_row else ''} {plan} p={p} iters={iters} "
+                      f"{variant}: max|err| {err:.3e} (bound {bound:.3e}), rsqrt column "
+                      f"max rel err {inv_err:.3e} (bound {2.0**-20:.3e})")
+                if not (err <= bound and inv_err <= 2.0**-20 and launched == 1):
+                    fail(f"gs_rmsnorm {name} ({rows}, {d}) offset {offset} p={p} {variant}: "
+                         f"y {err}, rsqrt column {inv_err}, {launched} launches")
+                worst = max(worst, err)
+    return worst
+
 
 def check_kernels():
     from repro_torch.kernels import flash_attention as flash_kernel
@@ -471,6 +576,7 @@ def check_kernels():
                 oracle = ref.attention(q.double(), k.double(), v.double(), **kw)
                 check_against_f64(f"{tuple(q.shape)} float32", ("out",), (got,), (want,),
                                   (oracle,))
+    worst["gs_rmsnorm"] = max(worst["gs_rmsnorm"], check_rmsnorm_plans(g))
     torch.cuda.synchronize()
     return worst
 
@@ -717,31 +823,87 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_kernels():
+# phase 4's gs_rmsnorm rows: (label, rows, dtype, (p, iters, variant),
+# save_inv, on copies cycled past the L2): the decode tick (N_SLOTS rows),
+# the longest prefill at f32, bf16 and p 12, and the training step's
+# batch 4 x 512 with the rsqrt column, at d 2048
+RMSNORM_TIMED = (("decode", N_SLOTS, "float32", (7, 2, "feedback"), False, False),
+                 ("prefill", max(PROMPTS), "float32", (7, 2, "feedback"), False, False),
+                 ("prefill bf16", max(PROMPTS), "bfloat16", (8, 0, "feedback"), False, False),
+                 ("prefill p12", max(PROMPTS), "float32", (12, 1, "pipelined"), False, False),
+                 ("train", 2048, "float32", (7, 2, "feedback"), True, True),
+                 ("train bf16", 2048, "bfloat16", (8, 0, "feedback"), True, True))
+
+
+def time_rmsnorm():
+    """gs_rmsnorm at the main paths' shapes (``RMSNORM_TIMED``), eps 1e-5,
+    after a second of load, beside its plain version and ``F.rms_norm`` x
+    gain (gain cast to x's dtype at bf16): per call (``cuda_ms``), and device
+    time queued back to back (``queued_ms``) for the kernel and the library
+    call; the decode and f32 prefill rows also by the profiler.  The
+    training rows take each call on the next of copies cycled past the L2
+    (``L2Ring``), so they read device memory; the others run on one input,
+    which the L2 holds."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import flash_attention as flash_kernel
     from repro_torch.kernels import gs_rmsnorm as rms_kernel
     from repro_torch.kernels import ref
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    rows = {}
-    d = 2048
+    d, eps = 2048, 1e-5
     gain = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
-    for label, n_rows in (("decode", N_SLOTS), ("prefill", max(PROMPTS))):
-        x = torch.randn(n_rows, d, generator=g, device=dev)
-        kw = dict(eps=1e-5, p=7, iters=2, variant="feedback")
-        t = cuda_ms(lambda: rms_kernel.gs_rmsnorm(x, gain, **kw), 200)
-        t_plain = cuda_ms(lambda: ref.rmsnorm(x, gain, **kw), 20)
-        t_lib = cuda_ms(lambda: F.rms_norm(x, (d,), weight=gain, eps=1e-5), 200)
-        dev_ms = [device_ms(f, 50) for f in (
-            lambda: rms_kernel.gs_rmsnorm(x, gain, **kw), lambda: ref.rmsnorm(x, gain, **kw),
-            lambda: F.rms_norm(x, (d,), weight=gain, eps=1e-5))]
-        b, by = bound_ms(n_rows * d * 8 + 4 * d, 4 * n_rows * d, "float32")
-        rows[("gs_rmsnorm", label)] = dict(ms=t, plain_ms=t_plain, library_ms=t_lib,
-                                           bound_ms=b, bound_by=by, device_ms=dev_ms,
-                                           shape=f"({n_rows}, {d}) float32")
+    rows = {}
+    under_load()
+    for label, n_rows, dtype_name, (p, iters, variant), save_inv, cycled in RMSNORM_TIMED:
+        dtype = getattr(torch, dtype_name)
+        x = (3 * torch.randn(n_rows, d, generator=g, device=dev)).to(dtype)
+        kw = dict(eps=eps, p=p, iters=iters, variant=variant, save_inv=save_inv)
+        kern = lambda x, kw=kw: rms_kernel.gs_rmsnorm(x, gain, **kw)  # noqa: E731
+        plain = lambda x, kw=kw: ref.rmsnorm(x, gain, **kw)  # noqa: E731
+        lib = lambda x, w=gain.to(dtype): F.rms_norm(x, (d,), weight=w, eps=eps)  # noqa: E731
+        nbytes = 2 * n_rows * d * x.element_size() + 4 * d + (4 * n_rows if save_inv else 0)
+        b, by = bound_ms(nbytes, 4 * n_rows * d, "float32")
+        shape = f"({n_rows}, {d}) {dtype_name} p={p} iters={iters} {variant}"
+        if save_inv:
+            shape += " save_inv"
+        if cycled:
+            ring = L2Ring(x, nbytes)
+            kern, plain, lib = (ring.calls(f) for f in (kern, plain, lib))
+            shape += f", {len(ring.xs)} copies cycled"
+        else:
+            kern, plain, lib = ((lambda f=f: f(x)) for f in (kern, plain, lib))
+        profile = label in ("decode", "prefill")
+        rows[("gs_rmsnorm", label)] = dict(
+            ms=cuda_ms(kern, 200), plain_ms=cuda_ms(plain, 20), library_ms=cuda_ms(lib, 200),
+            bound_ms=b, bound_by=by,
+            device_ms=[device_ms(f, 50) if profile else None for f in (kern, plain, lib)],
+            queued_ms=[queued_ms(f, 50) for f in (kern, lib)], shape=shape)
+    us = lambda v: "not measured" if v is None else f"{v * 1e3:.2f} us"  # noqa: E731
+    for (_, label), r in rows.items():
+        q_kern, q_lib = r["queued_ms"]
+        print(f"  gs_rmsnorm {label} {r['shape']}: queued back to back (CUDA events) kernel "
+              f"{us(q_kern)}, F.rms_norm {us(q_lib)} ({q_kern / q_lib:.3f}x), "
+              f"{r['bound_ms'] / q_kern:.1%} of the bound {r['bound_ms'] * 1e3:.3f} us "
+              f"({r['bound_by']}); per call (CUDA events, back to back) kernel "
+              f"{us(r['ms'])}, plain {us(r['plain_ms'])}, F.rms_norm {us(r['library_ms'])}; "
+              f"device time (profiler) kernel {us(r['device_ms'][0])}, plain "
+              f"{us(r['device_ms'][1])}, F.rms_norm {us(r['device_ms'][2])}")
+    return rows
+
+
+def time_kernels():
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as flash_kernel
+    from repro_torch.kernels import ref
+
+    with SampledClocks() as clocks:
+        rms_rows = time_rmsnorm()
+    print(f"  gs_rmsnorm clocks (nvidia-smi every 100 ms): {json.dumps(clocks.summary())}")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows = {}
     s, h, kh, hd = max(PROMPTS), 32, 4, 64
     for name, dtype, (p, iters) in (("float32", torch.float32, (7, 2)),
                                     ("bfloat16", torch.bfloat16, (8, 0))):
@@ -773,7 +935,7 @@ def time_kernels():
               f"{us(r['library_ms'])}; device time (profiler) kernel "
               f"{us(r['device_ms'][0])}, plain {us(r['device_ms'][1])}, library "
               f"{us(r['device_ms'][2])}; bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
-    return rows
+    return {**rms_rows, **rows}
 
 
 def flash_vs_sdpa(label: str, nbytes: float, flops: float, dtype: str, kernel_ms,
@@ -1888,6 +2050,7 @@ def main() -> None:
         fail(f"{log.name} reports spills for {len(flash_reported)} flash kernel instances, "
              f"not {len(hmma)}")
     check_elementwise_build(lib, log.read_text(), sass_text)
+    check_rmsnorm_build(lib, log.read_text(), sass_text)
 
     print("== 2. kernels vs plain versions")
     worst = check_kernels()

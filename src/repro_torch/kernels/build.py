@@ -31,8 +31,11 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     # x, gain, rom, out, inv_out, rows, d, inv_d, eps, p, iters, pipelined,
-    # rsqrt_scale, is_bf16, stream
-    "gs_rmsnorm_launch": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _I, _F, _I, _P],
+    # rsqrt_scale, is_bf16, vector, vecs, row_threads, rows_per_block, grid,
+    # stream
+    "gs_rmsnorm_launch": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_I] * 3 + [_F] + [_I] * 6 + [_P],
+    # is_bf16, vector, vecs, threads, blocks (out)
+    "gs_rmsnorm_occupancy": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
     # q, k, v, rom, out, m_out, l_out, B, H, KH, S, D, sm_scale, causal, p,
     # iters, pipelined, is_bf16, stream
     "flash_attention_fwd": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 5 + [_P],

@@ -15,7 +15,8 @@ every multiply and add unfused with ``__fmul_rn``/``__fadd_rn``):
 
 The ROM read, a one-hot × table matmul on the TPU, is an indexed load here
 (``table[idx]``); on the card it is a load from the block's shared-memory
-copy of the table.
+copy of the table or, in the elementwise and rmsnorm kernels, from the
+table itself through the read-only cache.
 
 The fixed-point helpers of the int8 kernels (``csrc/gs_fixed_common.cuh``)
 have their twins in :mod:`repro_torch.core.fixed_point_torch`.

@@ -7,7 +7,8 @@
 // * ROM read: on the TPU a one-hot x table matmul; here an indexed load
 //   from the block's shared-memory copy of the 2^p-entry f32 table
 //   (stage_rom), which the host builds from core/lut.py, or, in the
-//   elementwise kernels, from the table itself through the read-only cache.
+//   elementwise and rmsnorm kernels, from the table itself through the
+//   read-only cache.
 //   p is a runtime argument (5..12).
 // * feedback variant: one (q, r) register pair in a runtime loop
 //   (#pragma unroll 1 over the trip count).  pipelined: a full unroll up to
@@ -31,7 +32,7 @@ constexpr float kNegInf = -1e30f;  // the kernels' finite mask value
 
 // The ROM and the datapath settings of one launch.
 struct Rom {
-  const float* table;  // shared-memory copy, 2^p entries
+  const float* table;  // 2^p entries: a shared-memory copy, or the table itself
   int p;
   int iters;
   int pipelined;
@@ -90,11 +91,14 @@ __device__ __forceinline__ float gs_recip_core(float m, int mant, const Rom& rom
 }
 
 // (g, h) with g -> sqrt(m) and 2h -> 1/sqrt(m), for m in [1, 4).
+// kReadOnly: rom.table is the table in device memory, read through the
+// read-only cache (__ldg), not a shared-memory copy.
+template <bool kReadOnly = false>
 __device__ __forceinline__ void gs_rsqrt_core(float m, const Rom& rom, float& g,
                                               float& h) {
   int idx = static_cast<int>(floorf(__fmul_rn(__fsub_rn(m, 1.0f), rom.rsqrt_scale)));
   idx = min(max(idx, 0), (1 << rom.p) - 1);
-  const float y0 = rom.table[idx];
+  const float y0 = kReadOnly ? __ldg(rom.table + idx) : rom.table[idx];
   g = __fmul_rn(m, y0);
   h = __fmul_rn(0.5f, y0);
   if (rom.pipelined) {
@@ -115,7 +119,8 @@ __device__ __forceinline__ float recip_positive(float x, const Rom& rom) {
 }
 
 // 1/sqrt(x) for strictly positive normal f32 x: an odd exponent folds into
-// m in [1, 4).
+// m in [1, 4).  kReadOnly as for gs_rsqrt_core.
+template <bool kReadOnly = false>
 __device__ __forceinline__ float rsqrt_positive(float x, const Rom& rom) {
   float m = mantissa_to_m(mantissa_bits(x));
   const int e = biased_exp(x) - 127;
@@ -123,7 +128,7 @@ __device__ __forceinline__ float rsqrt_positive(float x, const Rom& rom) {
   if (odd) m = __fmul_rn(m, 2.0f);
   const int half_e = (odd ? e - 1 : e) >> 1;
   float g, h;
-  gs_rsqrt_core(m, rom, g, h);
+  gs_rsqrt_core<kReadOnly>(m, rom, g, h);
   return __fmul_rn(__fmul_rn(2.0f, h), pow2_from_biased(127 - half_e));
 }
 

@@ -72,6 +72,43 @@ def test_kernels_match_plain_versions(cuda_device, dtype):
     torch.cuda.synchronize()
 
 
+# (rows, d, storage offset, zero row): one row to a full training batch;
+# d 37 (the one-element instance), 200 (narrow rows, several a block), 2048
+# and 8192 (the row in registers), 16392 past the largest register plan and
+# 4097 past the one-element plan (the looping instances); a view one element
+# into its storage (not 16-byte aligned: the one-element instance); a row of
+# zeros (ms = 0, so the row's rsqrt is eps's)
+RMSNORM_SHAPES = [(1, 2048, 0, False), (4, 2048, 0, False), (333, 2048, 0, False),
+                  (2048, 2048, 0, False), (5, 37, 0, False), (13, 200, 0, False),
+                  (3, 8192, 0, False), (3, 16392, 0, False), (2, 4097, 0, False),
+                  (33, 2048, 1, False), (6, 2048, 0, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,offset,zero_row", RMSNORM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_plans_match_plain_version(cuda_device, dtype, rows, d, offset,
+                                                  zero_row):
+    g = torch.Generator(device=cuda_device).manual_seed(rows * d + offset)
+    buf = (3 * torch.randn(rows * d + offset, generator=g, device=cuda_device)).to(dtype)
+    x = buf[offset:].view(rows, d)
+    if zero_row:
+        x[rows // 2] = 0
+    gain = 1 + 0.1 * torch.randn(d, generator=g, device=cuda_device)
+    assert x.is_contiguous() and x.storage_offset() == offset
+    for p, iters, variant in PRECISIONS[dtype]:
+        kw = dict(eps=1e-5, p=p, iters=iters, variant=variant)
+        before = rms_kernel.launches
+        got, got_inv = rms_kernel.gs_rmsnorm(x, gain, save_inv=True, **kw)
+        assert rms_kernel.launches == before + 1
+        want, want_inv = ref.rmsnorm(x, gain, save_inv=True, **kw)
+        assert (got.float() - want.float()).abs().max().item() <= BOUND[dtype]
+        assert ((got_inv - want_inv).abs() / want_inv).max().item() <= 2.0**-20
+        if zero_row:
+            assert not got[rows // 2].any()
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_smoke_engine_runs_the_kernels(cuda_device):
     cfg = configs.get_smoke("tinyllama-1.1b", dtype="float32")

@@ -55,7 +55,7 @@ def _np(t):
     return np.asarray(t, np.float32) if not torch.is_tensor(t) else t.float().numpy()
 
 
-@pytest.mark.parametrize("rows,d", [(5, 72), (13, 200)])
+@pytest.mark.parametrize("rows,d", [(5, 72), (13, 200), (7, 37), (4, 2048)])
 @pytest.mark.parametrize("dtype,p,iters,variant", PRECISIONS)
 def test_rmsnorm_matches_pallas(dtype, rows, d, p, iters, variant):
     r = np.random.RandomState(rows * d + p)

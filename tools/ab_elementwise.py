@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Time ``chip_smoke.py``'s phase 8d rows (gs_recip, gs_rsqrt / gs_sqrt,
-gs_softmax) against one copy of the port, so that one call on a card can
-compare two trees with the same timing code.
+gs_softmax) or its phase 4 gs_rmsnorm rows against one copy of the port, so
+that one call on a card can compare two trees with the same timing code.
 
-    python3 tools/ab_elementwise.py [--src DIR] [--label NAME]
+    python3 tools/ab_elementwise.py [--src DIR] [--label NAME] [--kernels rmsnorm]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported: this
 checkout's by default, or that of another commit's ``git archive`` unpacked
 under an ignored directory (its kernels build under that tree's ``build/``).
-Run the sides in turns (A, B, B, A) in one call.  Prints the card's name and
+``--kernels`` picks the rows: ``elementwise`` (phase 8d's, by default) or
+``rmsnorm`` (phase 4's ``time_rmsnorm``: decode, prefill at f32, bf16 and
+p 12, and the training batch with the rsqrt column on copies cycled past
+the L2).  Both trees' wrappers take the same arguments.  Run the sides in
+turns (A, B, B, A) in one call.  Prints the card's name and
 power limit, then one JSON line ``{"label", "src", "clocks", "rows": [...]}``
 with each row's times in ms and the SM and memory clocks nvidia-smi sampled
 while they were taken.  Needs one CUDA card.
@@ -28,6 +32,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="")
+    ap.add_argument("--kernels", choices=("elementwise", "rmsnorm"), default="elementwise")
     args = ap.parse_args()
     src = Path(args.src).resolve()
     sys.path.insert(0, str(src))
@@ -38,14 +43,18 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         sys.exit("ab_elementwise: torch finds no CUDA device")
-    from repro_torch.kernels import gs_elementwise
+    from repro_torch.kernels import gs_elementwise, gs_rmsnorm
 
-    if Path(gs_elementwise.__file__).resolve().parents[2] != src:
-        sys.exit(f"ab_elementwise: imported {gs_elementwise.__file__}, not the one under {src}")
+    for module in (gs_elementwise, gs_rmsnorm):
+        if Path(module.__file__).resolve().parents[2] != src:
+            sys.exit(f"ab_elementwise: imported {module.__file__}, not the one under {src}")
     print(chip_smoke.nvidia_smi_line())
+    timed = (chip_smoke.time_rmsnorm if args.kernels == "rmsnorm"
+             else chip_smoke.time_bench_kernels)
     with chip_smoke.SampledClocks() as clocks:
-        rows = chip_smoke.time_bench_kernels()
-    print(json.dumps({"label": args.label, "src": str(src), "clocks": clocks.summary(),
+        rows = timed()
+    print(json.dumps({"label": args.label, "src": str(src), "kernels": args.kernels,
+                      "clocks": clocks.summary(),
                       "rows": [{"kernel": k, "label": label, **r}
                                for (k, label), r in rows.items()]}))
 
