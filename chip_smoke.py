@@ -18,7 +18,11 @@ Phases, in order; any failure exits nonzero before the last line:
    gs_rmsnorm_kernel's 19 instances, failing on a spill, on shared memory
    beyond its per-warp partial sums (static plus the launch's dynamic part;
    a staged ROM copy would be more), or on a 16-byte vector instance
-   without LDG.E.128 and STG.E.128.
+   without LDG.E.128 and STG.E.128; the same for gs_fixed_rmsnorm_kernel's
+   8 instances, whose vector instances must hold 16-byte loads of x and
+   gain (five a vector a thread holds) and four 16-byte stores a vector;
+   the SASS instruction counts and digests of gs_fixed_recip_kernel and
+   gs_fixed_softmax_kernel.
 2. Kernels vs their plain PyTorch versions on the card: gs_rmsnorm at
    (rows, 2048), and with its rsqrt column (within 2^-20 relative) on each
    launch plan: rows 1 and 2048, d 37, 200, 8192, 16392 and 4097 (the last
@@ -83,7 +87,12 @@ Phases, in order; any failure exits nonzero before the last line:
    three formats of ``benchmarks/bench_kernels.py`` and both variants, at
    (256, 128), (37, 200) and, for the rmsnorm, (4, 2048) and (333, 2048):
    recip and rmsnorm bit-equal, all three within 2 x the format's error
-   bound of an f64 oracle (the bench's gate); (b) a 2-layer full-width cut
+   bound of an f64 oracle (the bench's gate); then gs_fixed_rmsnorm on each
+   launch plan in the three formats and at p 12, bit-equal, one launch a
+   call, within the oracle's gate: rows 1, 4, 333 and 2048 at d 2048, d 37,
+   200 and 8192, 16400 and 4097 past the register plans, a view one byte
+   into its storage, a row of zeros beside a row of ±127; (b) a 2-layer
+   full-width cut
    on the card and on the CPU, teacher-forced with the CPU's tokens through
    a prefill and 8 decode steps, the int8 codes each of the 5 norms is
    given recorded at every step: (i) every card code within 1 of the
@@ -98,9 +107,15 @@ Phases, in order; any failure exits nonzero before the last line:
    a second run; TTFT, tok/s, peak memory and the share of phase
    3's f32 tokens matched as a prefix (printed, not gated), and phase 5's
    profile of one request through the int8 engine; (d) the three
-   kernels timed at the path's shapes beside their plain versions and a
-   dequantize-then-library call (``F.rms_norm``, ``torch.reciprocal``,
-   ``torch.softmax`` on ``x.float() * scale``).
+   kernels timed beside their plain versions and a dequantize-then-library
+   call (``F.rms_norm``, ``torch.reciprocal``, ``torch.softmax`` on
+   ``x.float() * scale``), queued back to back (``queued_ms``) and per
+   call, with the SM and memory clocks nvidia-smi samples meanwhile:
+   gs_fixed_rmsnorm at the decode tick (4, 2048), the prefill (333, 2048)
+   at p 8 and p 12 and a 2048-token prefill on copies cycled past the L2,
+   also beside ``F.rms_norm`` alone on an f32 copy of its input;
+   gs_fixed_recip and gs_fixed_softmax at (256, 128) and at (65536, 128)
+   on copies cycled past the L2.
 8. The kernel benchmark's kernels (gs_recip, gs_rsqrt / gs_sqrt,
    gs_softmax), whose only caller is the kernel benchmark, in the reference
    too: (a) each against its plain version over the (dtype, p, iters,
@@ -132,6 +147,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import re
@@ -319,6 +335,76 @@ def check_rmsnorm_build(lib: Path, log_text: str, sass_text: str) -> None:
                  f"more than the {partials} bytes of per-warp partial sums")
         if "width 1," not in name and not (r["LDG.E.128"] and r["STG.E.128"]):
             fail(f"{name} lacks 16-byte loads or stores: {r}")
+
+
+# gs_fixed_rmsnorm_kernel<width, vecs> as it is mangled
+FIXED_RMSNORM_INSTANCE = re.compile(r"gs_fixed_rmsnorm_kernelILi(\d+)ELi(\d+)EE")
+# vecs 0 (the loop), 1, 2 at 16-byte vectors; 0, 1, 2, 4, 8 at one code
+FIXED_RMSNORM_INSTANCES = 8
+FIXED_RMSNORM_DYNAMIC_SMEM = 0  # the launch's (csrc/gs_fixed_rmsnorm.cu)
+FIXED_OTHERS = re.compile(r"(gs_fixed_(?:recip|softmax)_kernel)")
+
+
+def fixed_rmsnorm_instance_name(found) -> str:
+    width, vecs = found.groups()
+    return f"gs_fixed_rmsnorm_kernel<width {width}, vecs {vecs}>"
+
+
+def check_fixed_rmsnorm_build(lib: Path, log_text: str, sass_text: str) -> None:
+    """Phase 1 for gs_fixed_rmsnorm_kernel: every instance's registers,
+    shared memory and SASS instructions; no spill, no shared memory beyond
+    the per-warp partial sums (two rows' worth, static plus the launch's
+    dynamic part: a staged rsqrt ROM would be 2^p words more), and in each
+    16-byte vector instance 16-byte loads of x and gain (one and four a
+    vector a thread holds, LDG.E.128 with or without .CONSTANT) and four
+    16-byte stores a vector.  Then the SASS instruction counts of
+    gs_fixed_recip_kernel and gs_fixed_softmax_kernel."""
+    from repro_torch.kernels import gs_rmsnorm as rms_kernel
+
+    partials = 2 * (rms_kernel.MAX_THREADS // 32) * 4
+    ops = {"LDG.E.128": r"\bLDG\.E\.128\b", "STG.E.128": r"\bSTG\.E\.128\b",
+           "LDS/STS": r"\b(?:LDS|STS)\b", "BAR": r"\bBAR\b", "IDP.4A": r"\bIDP\.4A\b",
+           "REDUX": r"\bREDUX\b", "SHFL": r"\bSHFL\b"}
+    report = instance_report(FIXED_RMSNORM_INSTANCE, fixed_rmsnorm_instance_name, ops,
+                             log_text, sass_text)
+    for name in sorted(report):
+        print(f"  {name}: {report[name]}")
+    if len(report) != FIXED_RMSNORM_INSTANCES:
+        fail(f"expected {FIXED_RMSNORM_INSTANCES} instances of gs_fixed_rmsnorm_kernel in "
+             f"{lib.name}'s report and SASS, found {sorted(report)}")
+    for name, r in report.items():
+        if "registers" not in r or r.get("spill") != 0 or "instructions" not in r:
+            fail(f"{name} spills or has no register report or SASS: {r}")
+        if r["smem"] + FIXED_RMSNORM_DYNAMIC_SMEM > partials:
+            fail(f"{name} uses {r['smem']} + {FIXED_RMSNORM_DYNAMIC_SMEM} bytes of shared "
+                 f"memory, more than the {partials} bytes of per-warp partial sums")
+        vecs = max(1, int(name.split("vecs ")[1].rstrip(">")))
+        if "width 1," not in name and not (r["LDG.E.128"] >= 5 * vecs
+                                           and r["STG.E.128"] >= 4 * vecs):
+            fail(f"{name} lacks 16-byte loads of x and gain or 16-byte stores: {r}")
+    print(f"  SASS (NOP padding aside): {json.dumps(sass_digests(FIXED_OTHERS, sass_text))}")
+
+
+def sass_digests(pattern, sass_text: str) -> dict:
+    """Of each kernel function whose mangled name matches ``pattern`` (named
+    by its first group): its SASS instructions (NOP padding aside) and a
+    digest of their text without addresses, encodings and label numbers, so
+    that a function compiled into two libraries digests the same when its
+    code is the same."""
+    code, name = {}, None
+    for line in sass_text.splitlines():
+        if "Function :" in line:
+            found = pattern.search(line)
+            name = found.group(1) if found else None
+            if name:
+                code[name] = []
+        elif name:
+            op = re.search(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)", line)
+            if op and "NOP" not in op.group(1):
+                code[name].append(re.sub(r"\.L_x_\d+", ".L_x", op.group(1).strip()))
+    return {name: {"instructions": len(ops),
+                   "digest": hashlib.sha256("\n".join(ops).encode()).hexdigest()[:16]}
+            for name, ops in sorted(code.items())}
 
 
 def cuda_ms(fn, n: int) -> float:
@@ -1336,16 +1422,23 @@ def fixed_formats():
             ("mitchell", formats.NumericFormat.fixed(24, p=7, mitchell_iters=1)))
 
 
+def fixed_rmsnorm_oracle_error(x: np.ndarray, scale: float, gain: np.ndarray, out) -> float:
+    """bench_kernels.py's rmsnorm error against an f64 oracle (eps 1e-6),
+    over the largest element."""
+    xf = x.astype(np.float64) * scale
+    rn = xf / np.sqrt(np.mean(xf * xf, axis=-1, keepdims=True) + 1e-6) * gain
+    return float(np.max(np.abs(out.double().cpu().numpy() - rn)) / np.max(np.abs(rn)))
+
+
 def fixed_oracle_errors(x: np.ndarray, scale: float, gain: np.ndarray, outs):
     """bench_kernels.py's errors against an f64 oracle: recip relative,
     softmax absolute, rmsnorm over the largest element (eps 1e-6)."""
     xf = x.astype(np.float64) * scale
     e = np.exp(xf - xf.max(-1, keepdims=True))
-    rn = xf / np.sqrt(np.mean(xf * xf, axis=-1, keepdims=True) + 1e-6) * gain
-    recip, softmax, rmsnorm = (o.double().cpu().numpy() for o in outs)
+    recip, softmax = (o.double().cpu().numpy() for o in outs[:2])
     return {"gs_fixed_recip": float(np.max(np.abs(recip - 1.0 / xf) * np.abs(xf))),
             "gs_fixed_softmax": float(np.max(np.abs(softmax - e / e.sum(-1, keepdims=True)))),
-            "gs_fixed_rmsnorm": float(np.max(np.abs(rmsnorm - rn)) / np.max(np.abs(rn)))}
+            "gs_fixed_rmsnorm": fixed_rmsnorm_oracle_error(x, scale, gain, outs[2])}
 
 
 def check_fixed_kernels():
@@ -1405,6 +1498,65 @@ def check_fixed_kernels():
                         "gs_fixed_recip" in names and not zeros_equal):
                     fail(f"{shape} {fname} {variant}: recip/rmsnorm not bit-equal to the "
                          f"plain version: {errs}, zeros equal {zeros_equal}")
+    torch.cuda.synchronize()
+    return worst
+
+
+# gs_fixed_rmsnorm's launch plans on the card, beside check_fixed_kernels'
+# shapes: (rows, d, storage offset, special rows) — rows 1 to the 2048-token
+# prefill at d 2048 (16-byte vectors, one a thread), d 37 and 200 (single
+# codes; narrow rows several a block), 8192 (two vectors a thread), 16400
+# and 4097 past the register plans (the looping instances), a view one byte
+# into its storage (single codes), and a row of zeros (ss = 0, so ms = eps)
+# beside a row of ±127 (the largest ss)
+FIXED_RMSNORM_SHAPES = ((1, 2048, 0, False), (4, 2048, 0, True), (333, 2048, 0, False),
+                        (2048, 2048, 0, False), (5, 37, 0, False), (13, 200, 0, False),
+                        (3, 8192, 0, False), (2, 16400, 0, True), (2, 4097, 0, False),
+                        (33, 2048, 1, True))
+
+
+def check_fixed_rmsnorm_plans() -> float:
+    """gs_fixed_rmsnorm on ``FIXED_RMSNORM_SHAPES`` in the three formats of
+    ``fixed_formats()`` and at p 12: bit-equal to the plain version, one
+    launch a call, and within FIXED_MARGIN x the format's bound of the f64
+    oracle; returns the worst |kernel - plain|."""
+    from repro_torch.core import formats
+    from repro_torch.kernels import gs_fixed as fixed_kernel
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    scale = torch.tensor(0.02, device=dev)
+    fmts = fixed_formats() + (("p12", formats.NumericFormat.fixed(24, p=12)),)
+    worst = 0.0
+    for i, (rows, d, offset, special) in enumerate(FIXED_RMSNORM_SHAPES):
+        rng = np.random.RandomState(100 + i)
+        buf_np = rng.randint(-127, 128, rows * d + offset).astype(np.int8)
+        x_np = buf_np[offset:].reshape(rows, d)
+        if special:
+            x_np[0] = 0
+            x_np[-1] = np.where(np.arange(d) % 3 == 0, -127, 127)
+        gain_np = rng.randn(d).astype(np.float32)
+        x = torch.from_numpy(buf_np).to(dev)[offset:].view(rows, d)
+        gain = torch.from_numpy(gain_np).to(dev)
+        plan = fixed_kernel.launch_plan(d, (x.data_ptr() | gain.data_ptr()) % 16)
+        for fname, fmt in fmts:
+            rkw = dict(eps=1e-6, p=fmt.p, frac_bits=fmt.frac_bits, iters=fmt.iters)
+            bound = FIXED_MARGIN * fmt.error_bound()
+            before = fixed_kernel.launches_rmsnorm
+            got = fixed_kernel.gs_fixed_rmsnorm(x, scale, gain, **rkw)
+            launched = fixed_kernel.launches_rmsnorm - before
+            want = ref.fixed_rmsnorm(x, scale, gain, **rkw)
+            err = (got - want).abs().max().item()
+            oracle = fixed_rmsnorm_oracle_error(x_np, 0.02, gain_np, got)
+            print(f"  gs_fixed_rmsnorm ({rows}, {d}) offset {offset}"
+                  f"{' zero and ±127 rows' if special else ''} {plan} {fname}: "
+                  f"max|kernel - plain| {err:.3e}, vs the f64 oracle {oracle:.3e} "
+                  f"(bound {bound:.3e})")
+            if not (torch.equal(got, want) and launched == 1 and oracle <= bound):
+                fail(f"gs_fixed_rmsnorm ({rows}, {d}) offset {offset} {fname}: kernel vs "
+                     f"plain {err}, bit-equal {torch.equal(got, want)}, oracle {oracle} "
+                     f"(bound {bound}), {launched} launches")
+            worst = max(worst, err)
     torch.cuda.synchronize()
     return worst
 
@@ -1605,8 +1757,24 @@ def serve_int8(seed: int, seq_f32):
     return counts, stats
 
 
-def time_fixed_kernels():
-    """(d) the three kernels at the path's shapes."""
+# phase 7d's gs_fixed_rmsnorm rows, int8 format: (label, rows, p, on copies
+# cycled past the L2): the decode tick (N_SLOTS rows), the longest prefill
+# at p 8 and at p 12 (a 16 KB ROM), and a 2048-token prefill, at d 2048
+FIXED_RMSNORM_TIMED = (("decode", N_SLOTS, None, False), ("prefill", max(PROMPTS), None, False),
+                       ("prefill p12", max(PROMPTS), 12, False), ("prefill 2048", 2048, None, True))
+
+
+def time_fixed_rmsnorm():
+    """(d) gs_fixed_rmsnorm at ``FIXED_RMSNORM_TIMED``, the int8 format (frac
+    24, iters 0), eps 1e-5, after a second of load, beside its plain version
+    and two yardsticks the port never calls: dequantize + ``F.rms_norm``
+    (three launches) and ``F.rms_norm`` alone on an f32 copy of the
+    dequantized input made beforehand (one call, 8 bytes an element against
+    the kernel's 5).  Per call (``cuda_ms``) and device time queued back to
+    back (``queued_ms``) for the kernel and both yardsticks; the decode and
+    prefill rows also by the profiler.  The 2048-row row takes each call on
+    the next of copies cycled past the L2 (``L2Ring``), so it reads device
+    memory; the others run on one input, which the L2 holds."""
     import torch.nn.functional as F
 
     from repro_torch.core import formats
@@ -1615,46 +1783,122 @@ def time_fixed_kernels():
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
+    d, eps = 2048, 1e-5
+    fmt = formats.format_for("int8")
+    scale = torch.tensor(0.02, device=dev)
+    gain = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+    rows = {}
+    under_load()
+    for label, n_rows, p, cycled in FIXED_RMSNORM_TIMED:
+        rkw = dict(eps=eps, p=p or fmt.p, frac_bits=fmt.frac_bits, iters=fmt.iters)
+        x = torch.randint(-127, 128, (n_rows, d), generator=g, device=dev, dtype=torch.int8)
+        xf = x.float() * scale
+        kern = lambda x, rkw=rkw: fixed_kernel.gs_fixed_rmsnorm(x, scale, gain, **rkw)  # noqa: E731
+        plain = lambda x, rkw=rkw: ref.fixed_rmsnorm(x, scale, gain, **rkw)  # noqa: E731
+        lib = lambda x: F.rms_norm(x.float() * scale, (d,), weight=gain, eps=eps)  # noqa: E731
+        lib_f32 = lambda xf: F.rms_norm(xf, (d,), weight=gain, eps=eps)  # noqa: E731
+        n = n_rows * d
+        nbytes = n * (1 + 4) + 4 * d
+        b, by = bound_ms(nbytes, 5 * n, "float32")
+        shape = f"({n_rows}, {d}) int8 p={rkw['p']} frac_bits={fmt.frac_bits} iters={fmt.iters}"
+        if cycled:
+            ring, ring_f32 = L2Ring(x, nbytes), L2Ring(xf, 8 * n)
+            kern, plain, lib = (ring.calls(f) for f in (kern, plain, lib))
+            lib_f32 = ring_f32.calls(lib_f32)
+            shape += f", {len(ring.xs)} copies cycled ({len(ring_f32.xs)} of the f32 copy)"
+        else:
+            kern, plain, lib = ((lambda f=f: f(x)) for f in (kern, plain, lib))
+            lib_f32 = (lambda f=lib_f32: f(xf))
+        profile = label in ("decode", "prefill")
+        rows[("gs_fixed_rmsnorm", label)] = dict(
+            ms=cuda_ms(kern, 200), plain_ms=cuda_ms(plain, 20), library_ms=cuda_ms(lib, 200),
+            library_f32_ms=cuda_ms(lib_f32, 200), bound_ms=b, bound_by=by,
+            device_ms=[device_ms(f, 50) if profile else None for f in (kern, plain, lib)],
+            queued_ms=[queued_ms(f, 50) for f in (kern, lib, lib_f32)], shape=shape)
+    us = lambda v: "not measured" if v is None else f"{v * 1e3:.2f} us"  # noqa: E731
+    for (_, label), r in rows.items():
+        q_kern, q_lib, q_f32 = r["queued_ms"]
+        print(f"  gs_fixed_rmsnorm {label} {r['shape']}: queued back to back (CUDA events) "
+              f"kernel {us(q_kern)}, dequantize + F.rms_norm {us(q_lib)} "
+              f"({q_kern / q_lib:.3f}x), F.rms_norm on the f32 copy {us(q_f32)} "
+              f"({q_kern / q_f32:.3f}x), {r['bound_ms'] / q_kern:.1%} of the bound "
+              f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}); per call (CUDA events, back "
+              f"to back) kernel {us(r['ms'])}, plain {us(r['plain_ms'])}, dequantize + "
+              f"F.rms_norm {us(r['library_ms'])}, F.rms_norm on the f32 copy "
+              f"{us(r['library_f32_ms'])}; device time (profiler) kernel "
+              f"{us(r['device_ms'][0])}, plain {us(r['device_ms'][1])}, dequantize + "
+              f"F.rms_norm {us(r['device_ms'][2])}")
+    return rows
+
+
+def time_fixed_recip_softmax():
+    """(d) gs_fixed_recip and gs_fixed_softmax, int8 format, feedback, after a
+    second of load, beside their plain versions and a dequantize-then-library
+    call (``torch.reciprocal`` / ``torch.softmax`` on ``x.float() * scale``):
+    at (256, 128) on one input (the L2 holds it; per call, by the profiler
+    and queued back to back) and at (65536, 128) on copies cycled past the L2
+    (``L2Ring``; per call and queued)."""
+    from repro_torch.core import formats
+    from repro_torch.kernels import gs_fixed as fixed_kernel
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
     kw = dict(formats.format_for("int8").precision(), variant="feedback")
-    rkw = dict(eps=1e-5, p=kw["p"], frac_bits=kw["frac_bits"], iters=kw["iters"])
     scale = torch.tensor(0.02, device=dev)
     rows = {}
-    cases = [("gs_fixed_rmsnorm", (N_SLOTS, 2048), "decode"),
-             ("gs_fixed_rmsnorm", (max(PROMPTS), 2048), "prefill"),
-             ("gs_fixed_rmsnorm", (256, 128), "bench"), ("gs_fixed_recip", (256, 128), "bench"),
-             ("gs_fixed_softmax", (256, 128), "bench")]
-    for name, shape, label in cases:
+    under_load()
+    for name, shape, label in (("gs_fixed_recip", (256, 128), "bench"),
+                               ("gs_fixed_recip", (65536, 128), "hbm"),
+                               ("gs_fixed_softmax", (256, 128), "bench"),
+                               ("gs_fixed_softmax", (65536, 128), "hbm")):
         x = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
-        gain = 1 + 0.1 * torch.randn(shape[-1], generator=g, device=dev)
         n = x.numel()
-        if name == "gs_fixed_rmsnorm":
-            kern = lambda: fixed_kernel.gs_fixed_rmsnorm(x, scale, gain, **rkw)  # noqa: E731
-            plain = lambda: ref.fixed_rmsnorm(x, scale, gain, **rkw)  # noqa: E731
-            lib = lambda: F.rms_norm(x.float() * scale, (shape[-1],), weight=gain,  # noqa: E731
-                                     eps=1e-5)
-            nbytes, flops = n * (1 + 4) + 4 * shape[-1], 5 * n
-        elif name == "gs_fixed_recip":
-            kern = lambda: fixed_kernel.gs_fixed_recip(x, scale, **kw)  # noqa: E731
-            plain = lambda: ref.fixed_recip(x, scale, **kw)  # noqa: E731
-            lib = lambda: torch.reciprocal(x.float() * scale)  # noqa: E731
-            nbytes, flops = n * (1 + 4), 3 * n
+        if name == "gs_fixed_recip":
+            kern = lambda x: fixed_kernel.gs_fixed_recip(x, scale, **kw)  # noqa: E731
+            plain = lambda x: ref.fixed_recip(x, scale, **kw)  # noqa: E731
+            lib = lambda x: torch.reciprocal(x.float() * scale)  # noqa: E731
+            flops = 3 * n
         else:
-            kern = lambda: fixed_kernel.gs_fixed_softmax(x, scale, **kw)  # noqa: E731
-            plain = lambda: ref.fixed_softmax(x, scale, **kw)  # noqa: E731
-            lib = lambda: torch.softmax(x.float() * scale, dim=-1)  # noqa: E731
-            nbytes, flops = n * (1 + 4), 6 * n
+            kern = lambda x: fixed_kernel.gs_fixed_softmax(x, scale, **kw)  # noqa: E731
+            plain = lambda x: ref.fixed_softmax(x, scale, **kw)  # noqa: E731
+            lib = lambda x: torch.softmax(x.float() * scale, dim=-1)  # noqa: E731
+            flops = 6 * n
+        nbytes = n * (1 + 4)
         b, by = bound_ms(nbytes, flops, "float32")
+        desc = f"{shape} int8"
+        cycled = label == "hbm"
+        if cycled:
+            ring = L2Ring(x, nbytes)
+            kern, plain, lib = (ring.calls(f) for f in (kern, plain, lib))
+            desc += f", {len(ring.xs)} copies cycled"
+        else:
+            kern, plain, lib = ((lambda f=f: f(x)) for f in (kern, plain, lib))
         rows[(name, label)] = dict(
-            ms=cuda_ms(kern, 200), plain_ms=cuda_ms(plain, 20), library_ms=cuda_ms(lib, 200),
-            bound_ms=b, bound_by=by, device_ms=[device_ms(f, 50) for f in (kern, plain, lib)],
-            shape=f"{shape} int8")
-    us = lambda v: "not measured" if v is None else f"{v * 1e3:.1f} us"  # noqa: E731
+            ms=cuda_ms(kern, 200), plain_ms=cuda_ms(plain, 5 if cycled else 20),
+            library_ms=cuda_ms(lib, 200), bound_ms=b, bound_by=by,
+            device_ms=[None if cycled else device_ms(f, 50) for f in (kern, plain, lib)],
+            queued_ms=[queued_ms(f, 50) for f in (kern, lib)], shape=desc)
+    us = lambda v: "not measured" if v is None else f"{v * 1e3:.2f} us"  # noqa: E731
     for (kname, label), r in rows.items():
-        print(f"  {kname} {label} {r['shape']}: per call (CUDA events, back to back) kernel "
-              f"{us(r['ms'])}, plain {us(r['plain_ms'])}, dequant + library {us(r['library_ms'])}; "
-              f"device time (profiler) kernel {us(r['device_ms'][0])}, plain "
-              f"{us(r['device_ms'][1])}, dequant + library {us(r['device_ms'][2])}; bound "
-              f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
+        q_kern, q_lib = r["queued_ms"]
+        print(f"  {kname} {label} {r['shape']}: queued back to back (CUDA events) kernel "
+              f"{us(q_kern)}, dequantize + library {us(q_lib)} ({q_kern / q_lib:.3f}x), "
+              f"{r['bound_ms'] / q_kern:.1%} of the bound {r['bound_ms'] * 1e3:.3f} us "
+              f"({r['bound_by']}); per call (CUDA events, back to back) kernel {us(r['ms'])}, "
+              f"plain {us(r['plain_ms'])}, dequantize + library {us(r['library_ms'])}; device "
+              f"time (profiler) kernel {us(r['device_ms'][0])}, plain {us(r['device_ms'][1])}, "
+              f"dequantize + library {us(r['device_ms'][2])}")
+    return rows
+
+
+def time_fixed_kernels():
+    """(d) the three kernels at the path's shapes, with the SM and memory
+    clocks nvidia-smi samples meanwhile."""
+    with SampledClocks() as clocks:
+        rows = time_fixed_rmsnorm()
+        rows.update(time_fixed_recip_softmax())
+    print(f"  7d clocks (nvidia-smi every 100 ms): {json.dumps(clocks.summary())}")
     return rows
 
 
@@ -2051,6 +2295,7 @@ def main() -> None:
              f"not {len(hmma)}")
     check_elementwise_build(lib, log.read_text(), sass_text)
     check_rmsnorm_build(lib, log.read_text(), sass_text)
+    check_fixed_rmsnorm_build(lib, log.read_text(), sass_text)
 
     print("== 2. kernels vs plain versions")
     worst = check_kernels()
@@ -2073,6 +2318,7 @@ def main() -> None:
 
     print("== 7. serve full-width tinyllama-1.1b int8")
     worst.update(check_fixed_kernels())
+    worst["gs_fixed_rmsnorm"] = max(worst["gs_fixed_rmsnorm"], check_fixed_rmsnorm_plans())
     int8_card_vs_cpu(args.seed)
     counts_int8, stats["int8"] = serve_int8(args.seed, seq_f32)
     timing.update(time_fixed_kernels())
@@ -2098,7 +2344,7 @@ def main() -> None:
              "gs_adam": ("float32", "gs_adam.cu", "gs_adam.py:114"),
              "gs_fixed_recip": ("bench", "gs_fixed.cu", "gs_fixed.py:135"),
              "gs_fixed_softmax": ("bench", "gs_fixed.cu", "gs_fixed.py:205"),
-             "gs_fixed_rmsnorm": ("decode", "gs_fixed.cu", "gs_fixed.py:282"),
+             "gs_fixed_rmsnorm": ("decode", "gs_fixed_rmsnorm.cu", "gs_fixed.py:282"),
              "gs_recip": ("bench", "gs_elementwise.cu", "gs_recip.py:72"),
              "gs_rsqrt": ("bench", "gs_elementwise.cu", "gs_rsqrt.py:78"),
              "gs_softmax": ("bench", "gs_softmax.cu", "gs_softmax.py:55")}

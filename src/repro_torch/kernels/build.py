@@ -55,8 +55,10 @@ _SIGNATURES = {
     # mitchell_iters, stream
     "gs_fixed_softmax_launch": [_P] * 4 + [_I] * 7 + [_P],
     # x, scale, gain, words, out, rows, d, inv_d, eps, frac_bits, p, iters,
-    # stream
-    "gs_fixed_rmsnorm_launch": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_I] * 3 + [_P],
+    # vector, vecs, row_threads, rows_per_block, grid, stream
+    "gs_fixed_rmsnorm_launch": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_I] * 8 + [_P],
+    # vector, vecs, threads, blocks (out)
+    "gs_fixed_rmsnorm_occupancy": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
     # op, x, rom, out0, out1, n, p, iters, pipelined, rsqrt_scale, is_bf16,
     # vector, grid, stream
     "gs_elementwise_launch": [_I] + [_P] * 4 + [_L] + [_I] * 3 + [_F] + [_I] * 3 + [_P],

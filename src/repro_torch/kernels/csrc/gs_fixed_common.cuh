@@ -1,4 +1,5 @@
-// Fixed-point Goldschmidt device helpers for the int8 kernels (gs_fixed.cu).
+// Fixed-point Goldschmidt device helpers for the int8 kernels (gs_fixed.cu,
+// gs_fixed_rmsnorm.cu).
 //
 // Twins of the plain datapath in src/repro_torch/core/fixed_point_torch.py
 // (FixedPointTorch and its IEEE-754 boundary), which the tests hold
@@ -22,7 +23,9 @@
 // (C++ leaves wider shifts undefined where XLA defines them as 0):
 // shl32() returns 0 for amounts >= 32, and the Mitchell right shift is
 // clamped to 31 as in the reference.  The ROM is an indexed load of the
-// integer words, left-aligned to F by the host, from shared memory.
+// integer words, left-aligned to F by the host: from shared memory in
+// gs_fixed.cu, one word a row through the read-only cache in
+// gs_fixed_rmsnorm.cu.
 #pragma once
 
 #include <cstdint>

@@ -2,34 +2,54 @@
 
 Replace the three ``pallas_call``s of ``repro.kernels.gs_fixed``
 (``gs_fixed_recip``, ``gs_fixed_softmax``, ``gs_fixed_rmsnorm``).  The
-kernels are ``csrc/gs_fixed.cu`` over the helpers of
+kernels are ``csrc/gs_fixed.cu`` (recip, softmax) and
+``csrc/gs_fixed_rmsnorm.cu`` over the helpers of
 ``csrc/gs_fixed_common.cuh``; their plain PyTorch versions are
 :func:`repro_torch.kernels.ref.fixed_recip`, ``fixed_softmax`` and
 ``fixed_rmsnorm``.  The per-tensor scale reaches a kernel as a
 one-element f32 device operand, so a scale computed on the card is never
 read back.  ``launches_recip``, ``launches_softmax`` and
 ``launches_rmsnorm`` count each kernel's launches.
+
+The rmsnorm's launch plan is ``gs_rmsnorm``'s row plan at one byte an
+element (:func:`launch_plan`): 16-byte vectors of 16 codes when d is a
+multiple of 16 and every pointer is 16-byte aligned, the vectors a thread
+holds and the threads a row, rows a block, and a grid of at most SMs x
+resident blocks (:func:`grid_limits` queries the card once per device and
+instance).
 """
 
 from __future__ import annotations
 
-import functools
+import ctypes
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.fixed_point_torch import rom_words
-from repro_torch.kernels import build
+from repro_torch.kernels import build, gs_rmsnorm
+
+VECTOR_BYTES = 16
+# the widest row whose int8 sum of squares stays below 2^32 in the kernel's
+# uint32 partials (128^2 x 2^17 = 2^31)
+MAX_RMSNORM_D = 1 << 17
 
 launches_recip = 0
 launches_softmax = 0
 launches_rmsnorm = 0
+_roms: Dict[Tuple[str, int, int, Optional[int]], torch.Tensor] = {}
+_limits: Dict[Tuple, Tuple[int, int]] = {}
 
 
-@functools.lru_cache(maxsize=None)
-def rom_words_u32(kind: str, p: int, frac_bits: int, device: str) -> torch.Tensor:
+def rom_words_u32(kind: str, p: int, frac_bits: int, device: torch.device) -> torch.Tensor:
     """The ROM words left-aligned to ``frac_bits`` (at most 2^30) as the
-    kernels' uint32 operand, held in an int32 tensor."""
-    return rom_words(kind, p, frac_bits, device).to(torch.int32)
+    kernels' uint32 operand, held in an int32 tensor on ``device``: built
+    once per (kind, p, frac_bits, device index), then one dict lookup."""
+    key = (kind, p, frac_bits, device.index)
+    words = _roms.get(key)
+    if words is None:
+        words = _roms[key] = rom_words(kind, p, frac_bits, str(device)).to(torch.int32)
+    return words
 
 
 def scale_operand(scale, device: torch.device) -> torch.Tensor:
@@ -48,8 +68,10 @@ def _check(x: torch.Tensor, kernel: str, p: int, frac_bits: int, iters: int,
         raise ValueError(f"frac_bits={frac_bits} outside [p+2, 30] for p={p}")
 
 
-def _stream(x: torch.Tensor):
-    return torch.cuda.current_stream(x.device).cuda_stream
+def _stream(x: torch.Tensor) -> int:
+    """x's device's current stream from torch's raw getter
+    (``torch.cuda.current_stream`` builds a Stream object a call)."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
 
 
 def gs_fixed_recip(x: torch.Tensor, scale, *, p: int, frac_bits: int, iters: int,
@@ -62,7 +84,7 @@ def gs_fixed_recip(x: torch.Tensor, scale, *, p: int, frac_bits: int, iters: int
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     rc = build.load().gs_fixed_recip_launch(
         x.data_ptr(), inv_scale.data_ptr(),
-        rom_words_u32("recip", p, frac_bits, str(x.device)).data_ptr(), out.data_ptr(),
+        rom_words_u32("recip", p, frac_bits, x.device).data_ptr(), out.data_ptr(),
         x.numel(), frac_bits, p, iters, int(variant == "pipelined"), mitchell_iters,
         _stream(x))
     build.check(rc, "gs_fixed_recip")
@@ -79,7 +101,7 @@ def gs_fixed_softmax(x: torch.Tensor, scale, *, p: int, frac_bits: int, iters: i
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     rc = build.load().gs_fixed_softmax_launch(
         x.data_ptr(), scale_operand(scale, x.device).data_ptr(),
-        rom_words_u32("recip", p, frac_bits, str(x.device)).data_ptr(), out.data_ptr(),
+        rom_words_u32("recip", p, frac_bits, x.device).data_ptr(), out.data_ptr(),
         x.numel() // d, d, frac_bits, p, iters, int(variant == "pipelined"),
         mitchell_iters, _stream(x))
     build.check(rc, "gs_fixed_softmax")
@@ -87,24 +109,67 @@ def gs_fixed_softmax(x: torch.Tensor, scale, *, p: int, frac_bits: int, iters: i
     return out
 
 
+def launch_plan(d: int, ptr_bits: int) -> gs_rmsnorm.Plan:
+    """The rmsnorm's plan for rows of ``d`` int8 codes whose operands'
+    pointers OR to ``ptr_bits``: ``gs_rmsnorm``'s row plan at one byte an
+    element, so 16-byte vectors hold 16 codes (at most 2 a thread: rows up
+    to 16384 in registers) and single codes at most 8 (up to 4096)."""
+    return gs_rmsnorm.launch_plan(d, 1, ptr_bits)
+
+
+def resident_blocks(plan: gs_rmsnorm.Plan) -> int:
+    """Blocks of the plan's rmsnorm instance an SM of the current device
+    holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    blocks = ctypes.c_int(0)
+    rc = build.load().gs_fixed_rmsnorm_occupancy(int(plan.width > 1), plan.vecs, plan.threads,
+                                                 ctypes.byref(blocks))
+    build.check(rc, "gs_fixed_rmsnorm occupancy")
+    if blocks.value < 1:
+        raise RuntimeError(f"gs_fixed_rmsnorm: no block of {plan} fits on an SM")
+    return blocks.value
+
+
+def grid_limits(device: torch.device, plan: gs_rmsnorm.Plan) -> Tuple[int, int]:
+    """(SMs, resident blocks) of the plan's rmsnorm instance on ``device``,
+    queried once per device and instance and then one dict lookup."""
+    key = (device.index, plan)
+    limits = _limits.get(key)
+    if limits is None:
+        with torch.cuda.device(device):
+            limits = (torch.cuda.get_device_properties(device).multi_processor_count,
+                      resident_blocks(plan))
+        _limits[key] = limits
+    return limits
+
+
 def gs_fixed_rmsnorm(x: torch.Tensor, scale, gain: torch.Tensor, *, eps: float, p: int,
                      frac_bits: int, iters: int) -> torch.Tensor:
     """RMSNorm of (x·scale) over the last axis of int8 ``x``, times the
-    ``(d,)`` f32 ``gain``; f32 out."""
+    ``(d,)`` f32 ``gain``; f32 out.  One launch a call, none for an empty
+    x."""
     global launches_rmsnorm
     _check(x, "gs_fixed_rmsnorm", p, frac_bits, iters, "feedback")
-    d = x.shape[-1]
-    if gain.device != x.device or gain.dtype != torch.float32 or tuple(gain.shape) != (d,):
-        raise ValueError(f"gain must be ({d},) f32 on {x.device}, got "
+    d, dev = x.shape[-1], x.device
+    if gain.device != dev or gain.dtype != torch.float32 or tuple(gain.shape) != (d,):
+        raise ValueError(f"gain must be ({d},) f32 on {dev}, got "
                          f"{tuple(gain.shape)} {gain.dtype} on {gain.device}")
+    if d > MAX_RMSNORM_D:
+        raise ValueError(f"gs_fixed_rmsnorm takes rows of at most {MAX_RMSNORM_D} codes, "
+                         f"got {d}")
     gain = gain.contiguous()
-    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    # 1/d and eps reach the kernel as f32, rounded as the reference rounds
-    # its Python-float constants
-    rc = build.load().gs_fixed_rmsnorm_launch(
-        x.data_ptr(), scale_operand(scale, x.device).data_ptr(), gain.data_ptr(),
-        rom_words_u32("rsqrt", p, frac_bits, str(x.device)).data_ptr(), out.data_ptr(),
-        x.numel() // d, d, 1.0 / d, eps, frac_bits, p, iters, _stream(x))
-    build.check(rc, "gs_fixed_rmsnorm")
-    launches_rmsnorm += 1
+    out = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    rows = x.numel() // d if d else 0
+    if rows:
+        ptr_bits = (x.data_ptr() | gain.data_ptr() | out.data_ptr()) % VECTOR_BYTES
+        plan = launch_plan(d, ptr_bits)
+        grid = gs_rmsnorm.grid_size(rows, plan.rows_per_block, *grid_limits(dev, plan))
+        # 1/d and eps reach the kernel as f32, rounded as the reference
+        # rounds its Python-float constants
+        rc = build.load().gs_fixed_rmsnorm_launch(
+            x.data_ptr(), scale_operand(scale, dev).data_ptr(), gain.data_ptr(),
+            rom_words_u32("rsqrt", p, frac_bits, dev).data_ptr(), out.data_ptr(), rows, d,
+            1.0 / d, eps, frac_bits, p, iters, int(plan.width > 1), plan.vecs,
+            plan.row_threads, plan.rows_per_block, grid, _stream(x))
+        build.check(rc, "gs_fixed_rmsnorm")
+        launches_rmsnorm += 1
     return out

@@ -364,6 +364,58 @@ def test_fixed_kernels_match_plain_versions(cuda_device, variant):
     torch.cuda.synchronize()
 
 
+# gs_fixed_rmsnorm's launch plans: (rows, d, storage offset, special rows):
+# rows 1 to the 2048-token prefill at d 2048 (16-byte vectors, one a
+# thread), d 37 and 200 (single codes; narrow rows several a block), 8192
+# (two vectors a thread), 16400 and 4097 past the register plans (the
+# looping instances), a view one byte into its storage (single codes), and
+# a row of zeros (ss = 0, so ms = eps) beside a row of ±127 (the largest ss)
+FIXED_RMSNORM_SHAPES = [(1, 2048, 0, False), (4, 2048, 0, True), (333, 2048, 0, False),
+                        (2048, 2048, 0, False), (5, 37, 0, False), (13, 200, 0, False),
+                        (3, 8192, 0, False), (2, 16400, 0, True), (2, 4097, 0, False),
+                        (33, 2048, 1, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,offset,special", FIXED_RMSNORM_SHAPES)
+def test_fixed_rmsnorm_kernel_plans_are_bit_equal(cuda_device, rows, d, offset, special):
+    """Every plan bit-equal to the plain version in the three formats and at
+    p 12, one launch a call."""
+    g = torch.Generator(device=cuda_device).manual_seed(rows * d + offset)
+    buf = torch.randint(-127, 128, (rows * d + offset,), generator=g, device=cuda_device,
+                        dtype=torch.int8)
+    x = buf[offset:].view(rows, d)
+    if special:
+        x[0] = 0
+        x[-1] = torch.where(torch.arange(d, device=cuda_device) % 3 == 0, -127, 127)
+    assert x.is_contiguous() and x.storage_offset() == offset
+    gain = 1 + 0.1 * torch.randn(d, generator=g, device=cuda_device)
+    scale = torch.tensor(0.02, device=cuda_device)
+    for fmt in FIXED_FORMATS + (formats.NumericFormat.fixed(24, p=12),):
+        rkw = dict(eps=1e-5, p=fmt.p, frac_bits=fmt.frac_bits, iters=fmt.iters)
+        before = fixed_kernel.launches_rmsnorm
+        got = fixed_kernel.gs_fixed_rmsnorm(x, scale, gain, **rkw)
+        assert fixed_kernel.launches_rmsnorm == before + 1
+        assert torch.equal(got, ref.fixed_rmsnorm(x, scale, gain, **rkw))
+        if special:
+            assert not got[0].any()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_fixed_rmsnorm_launch_plan_on_the_card(cuda_device):
+    """Every plan's instance fits on an SM, and the 2048-row prefill's grid
+    is a block a row up to one wave of resident blocks."""
+    card_sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for d, ptr_bits in ((2048, 0), (8192, 0), (16400, 0), (37, 0), (200, 0), (2048, 1),
+                        (4096, 1), (4097, 0)):
+        plan = fixed_kernel.launch_plan(d, ptr_bits)
+        sms, resident = fixed_kernel.grid_limits(cuda_device, plan)
+        assert sms == card_sms and resident >= 1
+        assert rms_kernel.grid_size(2048, plan.rows_per_block, sms, resident) == min(
+            -(-2048 // plan.rows_per_block), sms * resident)
+
+
 @pytest.mark.cuda
 def test_smoke_int8_engine_runs_the_fixed_kernel(cuda_device):
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -231,6 +231,28 @@ def test_plain_fixed_kernels_match_pallas(shape, fmt_name, variant):
     assert sum(ops.launch_counts().values()) == 0
 
 
+@pytest.mark.parametrize("fmt_name", list(FORMATS))
+def test_plain_fixed_rmsnorm_decode_rows_match_pallas(fmt_name):
+    """At the int8 decode tick's (4, 2048), with a row of zeros (ss = 0, so
+    ms = eps) and a row of ±127 (the largest ss): the plain version bit for
+    bit against the numpy twin, and within 2 x the format's bound of the
+    reference's Pallas kernel in interpret mode."""
+    fmt, jfmt = FORMATS[fmt_name], _bench_formats(jformats)[fmt_name]
+    x = _int8((4, 2048), 4 * 2048)
+    x[1] = 0
+    x[2] = np.where(np.arange(2048) % 3 == 0, -127, 127)
+    scale = 0.02
+    gain = (1 + 0.1 * np.random.RandomState(10).randn(2048)).astype(np.float32)
+    rkw = dict(eps=1e-6, p=fmt.p, frac_bits=fmt.frac_bits, iters=fmt.iters)
+    got = ref.fixed_rmsnorm(torch.from_numpy(x), scale, torch.from_numpy(gain), **rkw).numpy()
+    twin = _np_fixed_rmsnorm(x, scale, gain, 1e-6, fmt)
+    np.testing.assert_array_equal(got.view(np.uint32), twin.view(np.uint32))
+    assert not got[1].any() and np.isfinite(got).all()
+    want = np.asarray(jfixed.gs_fixed_rmsnorm(jnp.asarray(x), scale, jnp.asarray(gain),
+                                              interpret=True, eps=1e-6, **fmt.precision()))
+    np.testing.assert_allclose(got, want, rtol=2 * jfmt.error_bound(), atol=0)
+
+
 def test_rmsnorm_int8_policy_matches_reference(model):
     _, _, _, _, jcfg_q, cfg_q = model
     x = (np.random.RandomState(11).randn(2, 7, 64) * 2).astype(np.float32)

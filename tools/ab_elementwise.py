@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
 """Time ``chip_smoke.py``'s phase 8d rows (gs_recip, gs_rsqrt / gs_sqrt,
-gs_softmax) or its phase 4 gs_rmsnorm rows against one copy of the port, so
-that one call on a card can compare two trees with the same timing code.
+gs_softmax), its phase 4 gs_rmsnorm rows or its phase 7d int8 rows against
+one copy of the port, so that one call on a card can compare two trees with
+the same timing code.
 
-    python3 tools/ab_elementwise.py [--src DIR] [--label NAME] [--kernels rmsnorm]
+    python3 tools/ab_elementwise.py [--src DIR] [--label NAME] [--kernels KIND]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported: this
 checkout's by default, or that of another commit's ``git archive`` unpacked
 under an ignored directory (its kernels build under that tree's ``build/``).
-``--kernels`` picks the rows: ``elementwise`` (phase 8d's, by default) or
+``--kernels`` picks the rows: ``elementwise`` (phase 8d's, by default),
 ``rmsnorm`` (phase 4's ``time_rmsnorm``: decode, prefill at f32, bf16 and
 p 12, and the training batch with the rsqrt column on copies cycled past
-the L2).  Both trees' wrappers take the same arguments.  Run the sides in
-turns (A, B, B, A) in one call.  Prints the card's name and
-power limit, then one JSON line ``{"label", "src", "clocks", "rows": [...]}``
-with each row's times in ms and the SM and memory clocks nvidia-smi sampled
-while they were taken.  Needs one CUDA card.
+the L2), ``fixed_rmsnorm`` (phase 7d's ``time_fixed_rmsnorm``: the int8
+decode tick, prefill at p 8 and p 12, and a 2048-token prefill on copies
+cycled past the L2) or ``fixed_recip_softmax`` (phase 7d's
+``time_fixed_recip_softmax``).  Both trees' wrappers take the same
+arguments.  Run the sides in turns (A, B, B, A) in one call.  Prints the
+card's name and power limit, then one JSON line ``{"label", "src",
+"clocks", "rows": [...]}`` with each row's times in ms and the SM and
+memory clocks nvidia-smi sampled while they were taken; for the int8 kinds
+also ``"sass"``, the SASS instruction count and digest of gs_fixed_recip_kernel
+and gs_fixed_softmax_kernel in the library that side built.  Needs one CUDA
+card.
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="")
-    ap.add_argument("--kernels", choices=("elementwise", "rmsnorm"), default="elementwise")
+    ap.add_argument("--kernels", default="elementwise",
+                    choices=("elementwise", "rmsnorm", "fixed_rmsnorm", "fixed_recip_softmax"))
     args = ap.parse_args()
     src = Path(args.src).resolve()
     sys.path.insert(0, str(src))
@@ -43,20 +51,24 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         sys.exit("ab_elementwise: torch finds no CUDA device")
-    from repro_torch.kernels import gs_elementwise, gs_rmsnorm
+    from repro_torch.kernels import build, gs_elementwise, gs_fixed, gs_rmsnorm
 
-    for module in (gs_elementwise, gs_rmsnorm):
+    for module in (gs_elementwise, gs_rmsnorm, gs_fixed):
         if Path(module.__file__).resolve().parents[2] != src:
             sys.exit(f"ab_elementwise: imported {module.__file__}, not the one under {src}")
     print(chip_smoke.nvidia_smi_line())
-    timed = (chip_smoke.time_rmsnorm if args.kernels == "rmsnorm"
-             else chip_smoke.time_bench_kernels)
+    timed = {"elementwise": chip_smoke.time_bench_kernels, "rmsnorm": chip_smoke.time_rmsnorm,
+             "fixed_rmsnorm": chip_smoke.time_fixed_rmsnorm,
+             "fixed_recip_softmax": chip_smoke.time_fixed_recip_softmax}[args.kernels]
     with chip_smoke.SampledClocks() as clocks:
         rows = timed()
-    print(json.dumps({"label": args.label, "src": str(src), "kernels": args.kernels,
-                      "clocks": clocks.summary(),
-                      "rows": [{"kernel": k, "label": label, **r}
-                               for (k, label), r in rows.items()]}))
+    line = {"label": args.label, "src": str(src), "kernels": args.kernels,
+            "clocks": clocks.summary(),
+            "rows": [{"kernel": k, "label": label, **r} for (k, label), r in rows.items()]}
+    if args.kernels.startswith("fixed"):
+        line["sass"] = chip_smoke.sass_digests(chip_smoke.FIXED_OTHERS,
+                                               chip_smoke.sass(build.library_path()))
+    print(json.dumps(line))
 
 
 if __name__ == "__main__":
