@@ -21,8 +21,10 @@ Phases, in order; any failure exits nonzero before the last line:
    without LDG.E.128 and STG.E.128; the same for gs_fixed_rmsnorm_kernel's
    8 instances, whose vector instances must hold 16-byte loads of x and
    gain (five a vector a thread holds) and four 16-byte stores a vector;
-   the SASS instruction counts and digests of gs_fixed_recip_kernel and
-   gs_fixed_softmax_kernel.
+   the same for gs_fixed_softmax_kernel's 10 instances (no spill, shared
+   memory only for the per-warp partials of the max and the sum, a float4
+   store a word in each word instance); the SASS instruction count and
+   digest of gs_fixed_recip_kernel.
 2. Kernels vs their plain PyTorch versions on the card: gs_rmsnorm at
    (rows, 2048), and with its rsqrt column (within 2^-20 relative) on each
    launch plan: rows 1 and 2048, d 37, 200, 8192, 16392 and 4097 (the last
@@ -91,8 +93,16 @@ Phases, in order; any failure exits nonzero before the last line:
    launch plan in the three formats and at p 12, bit-equal, one launch a
    call, within the oracle's gate: rows 1, 4, 333 and 2048 at d 2048, d 37,
    200 and 8192, 16400 and 4097 past the register plans, a view one byte
-   into its storage, a row of zeros beside a row of ±127; (b) a 2-layer
-   full-width cut
+   into its storage, a row of zeros beside a row of ±127; then
+   gs_fixed_softmax on each of its launch plans in the three formats and
+   at p 12, both variants and scales ±0.02, one launch a call (none for
+   no rows), within 2^-12 of the plain version and the oracle's gate:
+   (256, 128) and 4096 rows at d 128 (a warp a row, a word a lane), the
+   packed plans at d 128, 200 and 37 (on a grid of one block), d 64
+   (half-warp segments), 1, 37, 200, 1024, 4096, 4100 and 2049 (rows of
+   several warps), 16400 and 4097 past the register plans, views one and
+   four bytes into their storage, a row of one repeated code beside a row
+   holding its max twice; (b) a 2-layer full-width cut
    on the card and on the CPU, teacher-forced with the CPU's tokens through
    a prefill and 8 decode steps, the int8 codes each of the 5 norms is
    given recorded at every step: (i) every card code within 1 of the
@@ -115,7 +125,8 @@ Phases, in order; any failure exits nonzero before the last line:
    at p 8 and p 12 and a 2048-token prefill on copies cycled past the L2,
    also beside ``F.rms_norm`` alone on an f32 copy of its input;
    gs_fixed_recip and gs_fixed_softmax at (256, 128) and at (65536, 128)
-   on copies cycled past the L2.
+   on copies cycled past the L2, and gs_fixed_softmax at (256, 128) at
+   p 12.
 8. The kernel benchmark's kernels (gs_recip, gs_rsqrt / gs_sqrt,
    gs_softmax), whose only caller is the kernel benchmark, in the reference
    too: (a) each against its plain version over the (dtype, p, iters,
@@ -147,6 +158,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import math
@@ -342,7 +354,7 @@ FIXED_RMSNORM_INSTANCE = re.compile(r"gs_fixed_rmsnorm_kernelILi(\d+)ELi(\d+)EE"
 # vecs 0 (the loop), 1, 2 at 16-byte vectors; 0, 1, 2, 4, 8 at one code
 FIXED_RMSNORM_INSTANCES = 8
 FIXED_RMSNORM_DYNAMIC_SMEM = 0  # the launch's (csrc/gs_fixed_rmsnorm.cu)
-FIXED_OTHERS = re.compile(r"(gs_fixed_(?:recip|softmax)_kernel)")
+FIXED_OTHERS = re.compile(r"(gs_fixed_recip_kernel)")
 
 
 def fixed_rmsnorm_instance_name(found) -> str:
@@ -357,8 +369,8 @@ def check_fixed_rmsnorm_build(lib: Path, log_text: str, sass_text: str) -> None:
     dynamic part: a staged rsqrt ROM would be 2^p words more), and in each
     16-byte vector instance 16-byte loads of x and gain (one and four a
     vector a thread holds, LDG.E.128 with or without .CONSTANT) and four
-    16-byte stores a vector.  Then the SASS instruction counts of
-    gs_fixed_recip_kernel and gs_fixed_softmax_kernel."""
+    16-byte stores a vector.  Then the SASS instruction count and digest of
+    gs_fixed_recip_kernel."""
     from repro_torch.kernels import gs_rmsnorm as rms_kernel
 
     partials = 2 * (rms_kernel.MAX_THREADS // 32) * 4
@@ -383,6 +395,49 @@ def check_fixed_rmsnorm_build(lib: Path, log_text: str, sass_text: str) -> None:
                                            and r["STG.E.128"] >= 4 * vecs):
             fail(f"{name} lacks 16-byte loads of x and gain or 16-byte stores: {r}")
     print(f"  SASS (NOP padding aside): {json.dumps(sass_digests(FIXED_OTHERS, sass_text))}")
+
+
+# gs_fixed_softmax_kernel<width, vecs> as it is mangled
+FIXED_SOFTMAX_INSTANCE = re.compile(r"gs_fixed_softmax_kernelILi(\d+)ELi(\d+)EE")
+# vecs 0 (the loop), 1, 2, 4, 8 at 32-bit words of four codes and at one code
+FIXED_SOFTMAX_INSTANCES = 10
+
+
+def fixed_softmax_instance_name(found) -> str:
+    width, vecs = found.groups()
+    return f"gs_fixed_softmax_kernel<width {width}, vecs {vecs}>"
+
+
+def check_fixed_softmax_build(lib: Path, log_text: str, sass_text: str) -> None:
+    """Phase 1 for gs_fixed_softmax_kernel: every instance's registers,
+    shared memory and SASS instructions; no spill, no shared memory beyond
+    the per-warp partials of the max and the sum (a staged recip ROM would
+    be 2^p words more: the launch asks for no dynamic shared memory), and in
+    each word instance a float4 store (STG.E.128, or STG.E.EF.128 as a
+    streaming store) a word a thread holds."""
+    from repro_torch.kernels import gs_fixed as fixed_kernel
+
+    partials = 2 * (fixed_kernel.SOFTMAX_MAX_THREADS // 32) * 4
+    ops = {"LDG.E": r"\bLDG\.E\b", "LDG.E.S8": r"\bLDG\.E\.S8\b",
+           "STG.E*.128": r"\bSTG\.E(?:\.[A-Z0-9]+)*\.128\b", "LDS/STS": r"\b(?:LDS|STS)\b",
+           "BAR": r"\bBAR\b",
+           "REDUX": r"\bREDUX\b", "SHFL": r"\bSHFL\b", "MUFU.EX2": r"\bMUFU\.EX2\b"}
+    report = instance_report(FIXED_SOFTMAX_INSTANCE, fixed_softmax_instance_name, ops,
+                             log_text, sass_text)
+    for name in sorted(report):
+        print(f"  {name}: {report[name]}")
+    if len(report) != FIXED_SOFTMAX_INSTANCES:
+        fail(f"expected {FIXED_SOFTMAX_INSTANCES} instances of gs_fixed_softmax_kernel in "
+             f"{lib.name}'s report and SASS, found {sorted(report)}")
+    for name, r in report.items():
+        if "registers" not in r or r.get("spill") != 0 or "instructions" not in r:
+            fail(f"{name} spills or has no register report or SASS: {r}")
+        if r["smem"] > partials:
+            fail(f"{name} uses {r['smem']} bytes of shared memory, more than the {partials} "
+                 f"bytes of per-warp partials")
+        vecs = max(1, int(name.split("vecs ")[1].rstrip(">")))
+        if "width 1," not in name and r["STG.E*.128"] < vecs:
+            fail(f"{name} lacks a float4 store a word: {r}")
 
 
 def sass_digests(pattern, sass_text: str) -> dict:
@@ -1561,6 +1616,137 @@ def check_fixed_rmsnorm_plans() -> float:
     return worst
 
 
+# gs_fixed_softmax's launch plans on the card: (rows, d, storage offset,
+# special rows, packed) — d 128 (a warp a row, a word of four codes a lane)
+# at the benchmark's 256 rows and at 4096, the packed plans (eight words in
+# each of 4 lanes, eight rows a warp, at d 128; eight words or single codes
+# in each of 8 lanes at d 200 and 37), d 64 (half-warp segments, two rows a
+# warp), d 1 (a lane a row), 37 (single codes), 200 (two words a lane), 1024
+# (eight), 4096 and 4100 (rows of four and five warps), 2049 (single codes,
+# nine warps), 16400 and 4097 past the register plans (the looping
+# instances), views one byte (single codes) and four bytes (words) into
+# their storage, and a row of one repeated code (its e all 1, s = d) beside
+# a row holding its max and min twice.  A packed case runs on a grid of one
+# block (``one_block_grid``): its rows then fill the wave, so the wrapper
+# packs, and the block walks every row.  No case holds thousands of rows
+# more: there a one-ulp difference between the kernel's row sum and torch's
+# crosses a ROM bucket boundary in some row, and a seed-only format then
+# moves that row by ~2^-8, past SOFTMAX_PLAIN_RTOL (on an H100 it did at
+# (20000, 37), scale -0.02; PERF.md), while both stay within the oracle's
+# gate.
+FIXED_SOFTMAX_SHAPES = ((256, 128, 0, True, False), (4096, 128, 0, False, False),
+                        (256, 128, 0, True, True), (64, 200, 0, False, True),
+                        (333, 37, 0, True, True), (9, 64, 0, True, False),
+                        (33, 1, 0, False, False), (7, 37, 0, True, False),
+                        (37, 200, 0, False, False), (6, 1024, 0, False, False),
+                        (5, 4096, 0, True, False), (3, 4100, 0, False, False),
+                        (3, 2049, 0, False, False), (2, 16400, 0, True, False),
+                        (2, 4097, 0, False, False), (33, 128, 1, True, False),
+                        (33, 128, 4, False, False))
+
+
+@contextlib.contextmanager
+def one_block_grid(fixed_kernel):
+    """Within the block, ``gs_fixed`` sees one SM holding one block: a grid
+    of one block, and the packed plan for any rows that fill it."""
+    saved = fixed_kernel.grid_limits
+    fixed_kernel.grid_limits = lambda device, plan, kernel="rmsnorm": (1, 1)
+    try:
+        yield
+    finally:
+        fixed_kernel.grid_limits = saved
+
+
+def special_softmax_rows(x: np.ndarray) -> None:
+    """Row 0 one repeated code; the last row holding its max and min twice."""
+    x[0] = 77
+    last = x[-1]
+    if last.size > 3:
+        last[1], last[2] = last.max(), last.min()
+        last[0], last[3] = last[1], last[2]
+
+
+def fixed_softmax_oracle_error(x: np.ndarray, scale: float, out) -> float:
+    """bench_kernels.py's softmax error against an f64 oracle: absolute."""
+    xf = x.astype(np.float64) * scale
+    e = np.exp(xf - xf.max(-1, keepdims=True))
+    return float(np.max(np.abs(out.double().cpu().numpy() - e / e.sum(-1, keepdims=True))))
+
+
+def check_fixed_softmax_case(x, x_np: np.ndarray, fmts) -> dict:
+    """One FIXED_SOFTMAX_SHAPES case at scales ±0.02, in ``fmts``, both
+    variants; fails past a gate, else returns each format's worst (|kernel -
+    plain|, relative to plain, vs the f64 oracle)."""
+    from repro_torch.kernels import gs_fixed as fixed_kernel
+    from repro_torch.kernels import ref
+
+    rows, d = x.shape
+    shape_worst = {}
+    for scale_f in (0.02, -0.02):
+        scale = torch.tensor(scale_f, device=x.device)
+        for fname, fmt in fmts:
+            bound = FIXED_MARGIN * fmt.error_bound()
+            for variant in ("feedback", "pipelined"):
+                kw = dict(fmt.precision(), variant=variant)
+                before = fixed_kernel.launches_softmax
+                got = fixed_kernel.gs_fixed_softmax(x, scale, **kw)
+                launched = fixed_kernel.launches_softmax - before
+                want = ref.fixed_softmax(x, scale, **kw)
+                err = (got - want).abs().max().item()
+                rel = ((got - want).abs() / want).max().item()
+                oracle = fixed_softmax_oracle_error(x_np, scale_f, got)
+                if not (rel <= SOFTMAX_PLAIN_RTOL and launched == 1 and oracle <= bound):
+                    fail(f"gs_fixed_softmax ({rows}, {d}) storage offset {x.storage_offset()} "
+                         f"scale {scale_f} {fname} {variant}: |kernel - plain| / plain "
+                         f"{rel:.3e} (limit {SOFTMAX_PLAIN_RTOL:.3e}), oracle {oracle:.3e} "
+                         f"(bound {bound:.3e}), {launched} launches")
+                e0, r0, o0 = shape_worst.get(fname, (0.0, 0.0, 0.0))
+                shape_worst[fname] = (max(e0, err), max(r0, rel), max(o0, oracle))
+    return shape_worst
+
+
+def check_fixed_softmax_plans() -> float:
+    """gs_fixed_softmax on ``FIXED_SOFTMAX_SHAPES`` in the three formats of
+    ``fixed_formats()`` and at p 12, both variants, scales 0.02 and -0.02:
+    within SOFTMAX_PLAIN_RTOL of the plain version elementwise, one launch a
+    call, and within FIXED_MARGIN x the format's bound of the f64 oracle;
+    an input with no rows launches nothing.  Returns the worst |kernel -
+    plain|."""
+    from repro_torch.core import formats
+    from repro_torch.kernels import gs_fixed as fixed_kernel
+
+    dev = torch.device("cuda")
+    fmts = fixed_formats() + (("p12", formats.NumericFormat.fixed(24, p=12)),)
+    worst = 0.0
+    for i, (rows, d, offset, special, packed) in enumerate(FIXED_SOFTMAX_SHAPES):
+        rng = np.random.RandomState(200 + i)
+        buf_np = rng.randint(-127, 128, rows * d + offset).astype(np.int8)
+        x_np = buf_np[offset:].reshape(rows, d)
+        if special:
+            special_softmax_rows(x_np)
+        x = torch.from_numpy(buf_np).to(dev)[offset:].view(rows, d)
+        grid = one_block_grid(fixed_kernel) if packed else contextlib.nullcontext()
+        with grid:
+            plan = fixed_kernel.softmax_launch(rows, d, x.data_ptr() % 16, 0, dev)[0]
+            if plan != fixed_kernel.softmax_plan(d, x.data_ptr() % 16, 0, packed=packed):
+                fail(f"gs_fixed_softmax ({rows}, {d}): plan {plan}, packed case {packed}")
+            shape_worst = check_fixed_softmax_case(x, x_np, fmts)
+        worst = max([worst] + [w for w, _, _ in shape_worst.values()])
+        print(f"  gs_fixed_softmax ({rows}, {d}) offset {offset}"
+              f"{' repeated-code and twice-max rows' if special else ''} {plan}: worst "
+              f"(relative to plain, vs the f64 oracle) over scales ±0.02 and both variants "
+              + ", ".join(f"{k} ({r:.2e}, {o:.2e})" for k, (_, r, o) in shape_worst.items()))
+    before = fixed_kernel.launches_softmax
+    empty = fixed_kernel.gs_fixed_softmax(torch.empty(0, 128, dtype=torch.int8, device=dev),
+                                          torch.tensor(0.02, device=dev),
+                                          **fmts[0][1].precision(), variant="feedback")
+    if empty.shape != (0, 128) or fixed_kernel.launches_softmax != before:
+        fail(f"gs_fixed_softmax on no rows: shape {tuple(empty.shape)}, "
+             f"{fixed_kernel.launches_softmax - before} launches")
+    torch.cuda.synchronize()
+    return worst
+
+
 # Phase 7b's gates on the card's run against the CPU's.  Each norm of the
 # int8 path quantizes its whole input by one amax, so a last-ulp difference
 # in the largest element (another summation order, a tensor-core product)
@@ -1836,22 +2022,25 @@ def time_fixed_recip_softmax():
     second of load, beside their plain versions and a dequantize-then-library
     call (``torch.reciprocal`` / ``torch.softmax`` on ``x.float() * scale``):
     at (256, 128) on one input (the L2 holds it; per call, by the profiler
-    and queued back to back) and at (65536, 128) on copies cycled past the L2
-    (``L2Ring``; per call and queued)."""
+    and queued back to back), the softmax there also at p 12, and at
+    (65536, 128) on copies cycled past the L2 (``L2Ring``; per call and
+    queued)."""
     from repro_torch.core import formats
     from repro_torch.kernels import gs_fixed as fixed_kernel
     from repro_torch.kernels import ref
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
-    kw = dict(formats.format_for("int8").precision(), variant="feedback")
+    int8 = dict(formats.format_for("int8").precision(), variant="feedback")
     scale = torch.tensor(0.02, device=dev)
     rows = {}
     under_load()
     for name, shape, label in (("gs_fixed_recip", (256, 128), "bench"),
                                ("gs_fixed_recip", (65536, 128), "hbm"),
                                ("gs_fixed_softmax", (256, 128), "bench"),
-                               ("gs_fixed_softmax", (65536, 128), "hbm")):
+                               ("gs_fixed_softmax", (65536, 128), "hbm"),
+                               ("gs_fixed_softmax", (256, 128), "bench_p12")):
+        kw = dict(int8, p=12) if label.endswith("p12") else int8
         x = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
         n = x.numel()
         if name == "gs_fixed_recip":
@@ -1866,7 +2055,7 @@ def time_fixed_recip_softmax():
             flops = 6 * n
         nbytes = n * (1 + 4)
         b, by = bound_ms(nbytes, flops, "float32")
-        desc = f"{shape} int8"
+        desc = f"{shape} int8 p={kw['p']}"
         cycled = label == "hbm"
         if cycled:
             ring = L2Ring(x, nbytes)
@@ -2296,6 +2485,7 @@ def main() -> None:
     check_elementwise_build(lib, log.read_text(), sass_text)
     check_rmsnorm_build(lib, log.read_text(), sass_text)
     check_fixed_rmsnorm_build(lib, log.read_text(), sass_text)
+    check_fixed_softmax_build(lib, log.read_text(), sass_text)
 
     print("== 2. kernels vs plain versions")
     worst = check_kernels()
@@ -2319,6 +2509,7 @@ def main() -> None:
     print("== 7. serve full-width tinyllama-1.1b int8")
     worst.update(check_fixed_kernels())
     worst["gs_fixed_rmsnorm"] = max(worst["gs_fixed_rmsnorm"], check_fixed_rmsnorm_plans())
+    worst["gs_fixed_softmax"] = max(worst["gs_fixed_softmax"], check_fixed_softmax_plans())
     int8_card_vs_cpu(args.seed)
     counts_int8, stats["int8"] = serve_int8(args.seed, seq_f32)
     timing.update(time_fixed_kernels())
@@ -2343,7 +2534,7 @@ def main() -> None:
                                          "flash_attention.py:338"),
              "gs_adam": ("float32", "gs_adam.cu", "gs_adam.py:114"),
              "gs_fixed_recip": ("bench", "gs_fixed.cu", "gs_fixed.py:135"),
-             "gs_fixed_softmax": ("bench", "gs_fixed.cu", "gs_fixed.py:205"),
+             "gs_fixed_softmax": ("bench", "gs_fixed_softmax.cu", "gs_fixed.py:205"),
              "gs_fixed_rmsnorm": ("decode", "gs_fixed_rmsnorm.cu", "gs_fixed.py:282"),
              "gs_recip": ("bench", "gs_elementwise.cu", "gs_recip.py:72"),
              "gs_rsqrt": ("bench", "gs_elementwise.cu", "gs_rsqrt.py:78"),

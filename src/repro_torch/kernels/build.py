@@ -52,8 +52,10 @@ _SIGNATURES = {
     # mitchell_iters, stream
     "gs_fixed_recip_launch": [_P] * 4 + [_L] + [_I] * 5 + [_P],
     # x, scale, words, out, rows, d, frac_bits, p, iters, pipelined,
-    # mitchell_iters, stream
-    "gs_fixed_softmax_launch": [_P] * 4 + [_I] * 7 + [_P],
+    # mitchell_iters, vector, vecs, row_threads, rows_per_block, grid, stream
+    "gs_fixed_softmax_launch": [_P] * 4 + [_I] * 12 + [_P],
+    # vector, vecs, threads, blocks (out)
+    "gs_fixed_softmax_occupancy": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
     # x, scale, gain, words, out, rows, d, inv_d, eps, frac_bits, p, iters,
     # vector, vecs, row_threads, rows_per_block, grid, stream
     "gs_fixed_rmsnorm_launch": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_I] * 8 + [_P],

@@ -1,5 +1,5 @@
 // Fixed-point Goldschmidt device helpers for the int8 kernels (gs_fixed.cu,
-// gs_fixed_rmsnorm.cu).
+// gs_fixed_softmax.cu, gs_fixed_rmsnorm.cu).
 //
 // Twins of the plain datapath in src/repro_torch/core/fixed_point_torch.py
 // (FixedPointTorch and its IEEE-754 boundary), which the tests hold
@@ -25,7 +25,7 @@
 // clamped to 31 as in the reference.  The ROM is an indexed load of the
 // integer words, left-aligned to F by the host: from shared memory in
 // gs_fixed.cu, one word a row through the read-only cache in
-// gs_fixed_rmsnorm.cu.
+// gs_fixed_softmax.cu and gs_fixed_rmsnorm.cu.
 #pragma once
 
 #include <cstdint>
@@ -34,8 +34,8 @@
 
 namespace gsf {
 
-// One launch's datapath settings; `words` is the block's shared-memory copy
-// of the 2^p ROM words.
+// One launch's datapath settings; `words` holds the 2^p ROM words, either the
+// block's shared-memory copy or the left-aligned words in device memory.
 struct Datapath {
   const uint32_t* words;
   int F;

@@ -2,7 +2,7 @@
 
 Replace the three ``pallas_call``s of ``repro.kernels.gs_fixed``
 (``gs_fixed_recip``, ``gs_fixed_softmax``, ``gs_fixed_rmsnorm``).  The
-kernels are ``csrc/gs_fixed.cu`` (recip, softmax) and
+kernels are ``csrc/gs_fixed.cu`` (recip), ``csrc/gs_fixed_softmax.cu`` and
 ``csrc/gs_fixed_rmsnorm.cu`` over the helpers of
 ``csrc/gs_fixed_common.cuh``; their plain PyTorch versions are
 :func:`repro_torch.kernels.ref.fixed_recip`, ``fixed_softmax`` and
@@ -16,12 +16,18 @@ element (:func:`launch_plan`): 16-byte vectors of 16 codes when d is a
 multiple of 16 and every pointer is 16-byte aligned, the vectors a thread
 holds and the threads a row, rows a block, and a grid of at most SMs x
 resident blocks (:func:`grid_limits` queries the card once per device and
-instance).
+instance).  The softmax's plan (:func:`softmax_plan`) is its own, so that
+narrow rows leave no lane idle: 32-bit words of four codes when d is a
+multiple of 4, x is 4-byte and out 16-byte aligned; a row is a power-of-two
+segment of a warp (at d 128 one warp, a word a lane) or whole warps; when
+the rows fill a wave of blocks, a narrow row packs into fewer lanes
+(:func:`softmax_launch`: at d 128 eight words a lane, eight rows a warp).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -33,6 +39,10 @@ VECTOR_BYTES = 16
 # the widest row whose int8 sum of squares stays below 2^32 in the kernel's
 # uint32 partials (128^2 x 2^17 = 2^31)
 MAX_RMSNORM_D = 1 << 17
+SOFTMAX_WORD = 4  # int8 codes in the softmax's 32-bit word
+SOFTMAX_VECS = (1, 2, 4, 8)  # the register instances: vectors a thread holds
+SOFTMAX_BLOCK = 128  # threads a block the plan aims for: narrow rows share it
+SOFTMAX_MAX_THREADS = 512  # kMaxThreads in csrc/gs_fixed_softmax.cu
 
 launches_recip = 0
 launches_softmax = 0
@@ -92,23 +102,6 @@ def gs_fixed_recip(x: torch.Tensor, scale, *, p: int, frac_bits: int, iters: int
     return out
 
 
-def gs_fixed_softmax(x: torch.Tensor, scale, *, p: int, frac_bits: int, iters: int,
-                     variant: str, mitchell_iters: int) -> torch.Tensor:
-    """softmax(x·scale) over the last axis of int8 ``x``; f32 out."""
-    global launches_softmax
-    _check(x, "gs_fixed_softmax", p, frac_bits, iters, variant)
-    d = x.shape[-1]
-    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    rc = build.load().gs_fixed_softmax_launch(
-        x.data_ptr(), scale_operand(scale, x.device).data_ptr(),
-        rom_words_u32("recip", p, frac_bits, x.device).data_ptr(), out.data_ptr(),
-        x.numel() // d, d, frac_bits, p, iters, int(variant == "pipelined"),
-        mitchell_iters, _stream(x))
-    build.check(rc, "gs_fixed_softmax")
-    launches_softmax += 1
-    return out
-
-
 def launch_plan(d: int, ptr_bits: int) -> gs_rmsnorm.Plan:
     """The rmsnorm's plan for rows of ``d`` int8 codes whose operands'
     pointers OR to ``ptr_bits``: ``gs_rmsnorm``'s row plan at one byte an
@@ -117,29 +110,129 @@ def launch_plan(d: int, ptr_bits: int) -> gs_rmsnorm.Plan:
     return gs_rmsnorm.launch_plan(d, 1, ptr_bits)
 
 
-def resident_blocks(plan: gs_rmsnorm.Plan) -> int:
-    """Blocks of the plan's rmsnorm instance an SM of the current device
-    holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+def resident_blocks(plan: gs_rmsnorm.Plan, kernel: str = "rmsnorm") -> int:
+    """Blocks of the plan's instance of ``kernel`` (``"rmsnorm"`` or
+    ``"softmax"``) an SM of the current device holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     blocks = ctypes.c_int(0)
-    rc = build.load().gs_fixed_rmsnorm_occupancy(int(plan.width > 1), plan.vecs, plan.threads,
-                                                 ctypes.byref(blocks))
-    build.check(rc, "gs_fixed_rmsnorm occupancy")
+    name = f"gs_fixed_{kernel}"
+    rc = getattr(build.load(), f"{name}_occupancy")(int(plan.width > 1), plan.vecs,
+                                                    plan.threads, ctypes.byref(blocks))
+    build.check(rc, f"{name} occupancy")
     if blocks.value < 1:
-        raise RuntimeError(f"gs_fixed_rmsnorm: no block of {plan} fits on an SM")
+        raise RuntimeError(f"{name}: no block of {plan} fits on an SM")
     return blocks.value
 
 
-def grid_limits(device: torch.device, plan: gs_rmsnorm.Plan) -> Tuple[int, int]:
-    """(SMs, resident blocks) of the plan's rmsnorm instance on ``device``,
-    queried once per device and instance and then one dict lookup."""
-    key = (device.index, plan)
+def grid_limits(device: torch.device, plan: gs_rmsnorm.Plan,
+                kernel: str = "rmsnorm") -> Tuple[int, int]:
+    """(SMs, resident blocks) of the plan's instance of ``kernel`` on
+    ``device``, queried once per device, kernel and instance and then one
+    dict lookup."""
+    key = (kernel, device.index, plan)
     limits = _limits.get(key)
     if limits is None:
         with torch.cuda.device(device):
             limits = (torch.cuda.get_device_properties(device).multi_processor_count,
-                      resident_blocks(plan))
+                      resident_blocks(plan, kernel))
         _limits[key] = limits
     return limits
+
+
+def softmax_width(d: int, x_ptr: int, out_ptr: int) -> int:
+    """Codes a vector of the softmax: a 32-bit word of 4 when ``d`` is a
+    multiple of 4, x is 4-byte and out 16-byte aligned (every row's words
+    and float4 stores then are), else 1."""
+    if d % SOFTMAX_WORD == 0 and x_ptr % SOFTMAX_WORD == 0 and out_ptr % VECTOR_BYTES == 0:
+        return SOFTMAX_WORD
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def softmax_row_plan(d: int, width: int) -> Tuple[int, int]:
+    """(vectors a thread holds, threads a row) for a softmax row of ``d``
+    codes in ``width``-code vectors: the fewest vectors that fit the row in
+    one warp, as a power-of-two segment of it (d 128 in words: one vector
+    in each of 32 lanes); else 8 vectors a thread in whole warps, up to
+    :data:`SOFTMAX_MAX_THREADS`; a wider row takes the looping instance,
+    ``(0, SOFTMAX_MAX_THREADS)``."""
+    nvec = d // width
+    for vecs in SOFTMAX_VECS:
+        lanes = -(-nvec // vecs)
+        if lanes <= 32:
+            return vecs, 1 << (lanes - 1).bit_length()
+    vecs = SOFTMAX_VECS[-1]
+    threads = 32 * -(-nvec // (32 * vecs))
+    return (vecs, threads) if threads <= SOFTMAX_MAX_THREADS else (0, SOFTMAX_MAX_THREADS)
+
+
+def packed_row_plan(d: int, width: int) -> Tuple[int, int]:
+    """A row of one warp in the fewest lanes, at most 8 vectors a lane, and
+    the fewest vectors that fill them (d 128 in words: 8 words in each of 4
+    lanes, eight rows a warp); the plain row plan where that saves no lane.
+    More rows a warp put more loads in flight: on an H100 at (65536, 128)
+    queued, 8 words a lane took 16.8 us, 2 or 4 words 18.7 and 1 word 20.1,
+    while at 256 rows the plain plan's warp a row is the fastest."""
+    vecs, row_threads = softmax_row_plan(d, width)
+    nvec = d // width
+    lanes = -(-nvec // SOFTMAX_VECS[-1])
+    lanes = 1 << (lanes - 1).bit_length()
+    if row_threads > 32 or lanes >= row_threads:
+        return vecs, row_threads
+    return next(v for v in SOFTMAX_VECS if v * lanes >= nvec), lanes
+
+
+@functools.lru_cache(maxsize=None)
+def softmax_plan(d: int, x_bits: int, out_bits: int, packed: bool = False) -> gs_rmsnorm.Plan:
+    """The softmax's plan for rows of ``d`` codes whose x and out pointers
+    are ``x_bits`` and ``out_bits`` past a 16-byte boundary, on
+    :func:`softmax_row_plan` (or, ``packed``, :func:`packed_row_plan`):
+    blocks of :data:`SOFTMAX_BLOCK` threads, or one row."""
+    width = softmax_width(d, x_bits, out_bits)
+    vecs, row_threads = (packed_row_plan if packed else softmax_row_plan)(d, width)
+    return gs_rmsnorm.Plan(width, vecs, row_threads, max(1, SOFTMAX_BLOCK // row_threads))
+
+
+def softmax_launch(rows: int, d: int, x_bits: int, out_bits: int,
+                   device: torch.device) -> Tuple[gs_rmsnorm.Plan, int]:
+    """(plan, grid) for ``rows`` rows: the packed plan when the rows fill
+    one wave of its resident blocks (every lane it leaves idle is then
+    another row's), else the plain plan, whose narrow rows spread over
+    more warps; the grid at most SMs x resident blocks."""
+    plan = softmax_plan(d, x_bits, out_bits)
+    packed = softmax_plan(d, x_bits, out_bits, packed=True)
+    if packed != plan:
+        sms, resident = grid_limits(device, packed, "softmax")
+        if rows >= packed.rows_per_block * sms * resident:
+            return packed, sms * resident
+    return plan, gs_rmsnorm.grid_size(rows, plan.rows_per_block,
+                                      *grid_limits(device, plan, "softmax"))
+
+
+def gs_fixed_softmax(x: torch.Tensor, scale, *, p: int, frac_bits: int, iters: int,
+                     variant: str, mitchell_iters: int) -> torch.Tensor:
+    """softmax(x·scale) over the last axis of int8 ``x``; f32 out.  One
+    launch a call, none for an empty x; rows of no code are refused."""
+    global launches_softmax
+    _check(x, "gs_fixed_softmax", p, frac_bits, iters, variant)
+    if x.dim() == 0 or x.shape[-1] == 0:
+        raise ValueError(f"gs_fixed_softmax takes rows of at least one code, got shape "
+                         f"{tuple(x.shape)}")
+    d, dev = x.shape[-1], x.device
+    out = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    rows = x.numel() // d
+    if rows:
+        plan, grid = softmax_launch(rows, d, x.data_ptr() % VECTOR_BYTES,
+                                    out.data_ptr() % VECTOR_BYTES, dev)
+        rc = build.load().gs_fixed_softmax_launch(
+            x.data_ptr(), scale_operand(scale, dev).data_ptr(),
+            rom_words_u32("recip", p, frac_bits, dev).data_ptr(), out.data_ptr(), rows, d,
+            frac_bits, p, iters, int(variant == "pipelined"), mitchell_iters,
+            int(plan.width > 1), plan.vecs, plan.row_threads, plan.rows_per_block, grid,
+            _stream(x))
+        build.check(rc, "gs_fixed_softmax")
+        launches_softmax += 1
+    return out
 
 
 def gs_fixed_rmsnorm(x: torch.Tensor, scale, gain: torch.Tensor, *, eps: float, p: int,

@@ -416,6 +416,104 @@ def test_fixed_rmsnorm_launch_plan_on_the_card(cuda_device):
             -(-2048 // plan.rows_per_block), sms * resident)
 
 
+# gs_fixed_softmax's launch plans (chip_smoke.py's FIXED_SOFTMAX_SHAPES):
+# (rows, d, storage offset, special rows, packed): d 128 (a warp a row, a
+# word of four codes a lane) at 256 and 4096 rows, the packed plans at d 128,
+# 200 and 37 (on a grid of one block, whose wave the rows fill), d 64
+# (half-warp segments), d 1, 37 (single codes), 200, 1024, 4096, 4100 and
+# 2049 (rows of several warps), 16400 and 4097 past the register plans,
+# views one and four bytes in, and a row of one repeated code beside a row
+# holding its max and min twice.  No case holds thousands of rows: there a
+# one-ulp difference between the kernel's row sum and torch's crosses a ROM
+# bucket boundary in some row, and a seed-only format moves that row by
+# ~2^-8, past SOFTMAX_PLAIN_RTOL, while both stay within the oracle's gate.
+FIXED_SOFTMAX_SHAPES = [(256, 128, 0, True, False), (4096, 128, 0, False, False),
+                        (256, 128, 0, True, True), (64, 200, 0, False, True),
+                        (333, 37, 0, True, True), (9, 64, 0, True, False),
+                        (33, 1, 0, False, False), (7, 37, 0, True, False),
+                        (37, 200, 0, False, False), (6, 1024, 0, False, False),
+                        (5, 4096, 0, True, False), (3, 4100, 0, False, False),
+                        (3, 2049, 0, False, False), (2, 16400, 0, True, False),
+                        (2, 4097, 0, False, False), (33, 128, 1, True, False),
+                        (33, 128, 4, False, False)]
+FIXED_MARGIN = 2.0  # benchmarks/bench_kernels.py: each int8 row's gate is 2 x its bound
+# chip_smoke.py's SOFTMAX_PLAIN_RTOL: the row sum's order is the kernel's own
+SOFTMAX_PLAIN_RTOL = 2.0 ** -12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.02, -0.02])
+@pytest.mark.parametrize("rows,d,offset,special,packed", FIXED_SOFTMAX_SHAPES)
+def test_fixed_softmax_kernel_plans_match_plain_version(cuda_device, monkeypatch, rows, d,
+                                                        offset, special, packed, scale):
+    """Every plan in the three formats and at p 12, both variants: within
+    SOFTMAX_PLAIN_RTOL of the plain version elementwise and within
+    FIXED_MARGIN x the format's bound of an f64 oracle, one launch a call."""
+    if packed:  # one SM holding one block: the rows fill the wave, so the plan packs
+        monkeypatch.setattr(fixed_kernel, "grid_limits",
+                            lambda device, plan, kernel="rmsnorm": (1, 1))
+    assert fixed_kernel.softmax_launch(rows, d, offset % 16, 0, cuda_device)[0] == (
+        fixed_kernel.softmax_plan(d, offset % 16, 0, packed=packed))
+    rng = np.random.RandomState(rows * d + offset)
+    buf = rng.randint(-127, 128, rows * d + offset).astype(np.int8)
+    x_np = buf[offset:].reshape(rows, d)
+    if special:
+        x_np[0] = 77
+        last = x_np[-1]
+        if d > 3:
+            last[1], last[2] = last.max(), last.min()
+            last[0], last[3] = last[1], last[2]
+    x = torch.from_numpy(buf).to(cuda_device)[offset:].view(rows, d)
+    assert x.is_contiguous() and x.storage_offset() == offset
+    xf = x_np.astype(np.float64) * scale
+    e = np.exp(xf - xf.max(-1, keepdims=True))
+    exact = e / e.sum(-1, keepdims=True)
+    sc = torch.tensor(scale, device=cuda_device)
+    for fmt in FIXED_FORMATS + (formats.NumericFormat.fixed(24, p=12),):
+        for variant in ("feedback", "pipelined"):
+            kw = dict(fmt.precision(), variant=variant)
+            before = fixed_kernel.launches_softmax
+            got = fixed_kernel.gs_fixed_softmax(x, sc, **kw)
+            assert fixed_kernel.launches_softmax == before + 1
+            want = ref.fixed_softmax(x, sc, **kw)
+            assert ((got - want).abs() <= SOFTMAX_PLAIN_RTOL * want).all()
+            oracle = np.abs(got.double().cpu().numpy() - exact).max()
+            assert oracle <= FIXED_MARGIN * fmt.error_bound()
+            if special:  # one repeated code: e all 1, every output the fixed 1/d
+                assert torch.equal(got[0], got[0, :1].expand(d))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_fixed_softmax_makes_no_launch_for_no_rows(cuda_device):
+    kw = dict(formats.format_for("int8").precision(), variant="feedback")
+    before = fixed_kernel.launches_softmax
+    out = fixed_kernel.gs_fixed_softmax(torch.empty(0, 128, dtype=torch.int8, device=cuda_device),
+                                        torch.tensor(0.02, device=cuda_device), **kw)
+    assert out.shape == (0, 128) and fixed_kernel.launches_softmax == before
+    with pytest.raises(ValueError, match="at least one code"):
+        fixed_kernel.gs_fixed_softmax(torch.empty(4, 0, dtype=torch.int8, device=cuda_device),
+                                      0.02, **kw)
+
+
+@pytest.mark.cuda
+def test_fixed_softmax_launch_plan_on_the_card(cuda_device):
+    """Every plan's instance, plain and packed, fits on an SM; the benchmark's
+    (256, 128) keeps a warp a row and (65536, 128) packs eight rows a warp in
+    a grid of one wave."""
+    card_sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for rows, d, offset, _, _ in FIXED_SOFTMAX_SHAPES:
+        for packed in (False, True):
+            plan = fixed_kernel.softmax_plan(d, offset % 16, 0, packed=packed)
+            sms, resident = fixed_kernel.grid_limits(cuda_device, plan, "softmax")
+            assert sms == card_sms and resident >= 1
+    plain, packed = (fixed_kernel.softmax_plan(128, 0, 0, packed=p) for p in (False, True))
+    assert fixed_kernel.softmax_launch(256, 128, 0, 0, cuda_device)[0] == plain
+    plan, grid = fixed_kernel.softmax_launch(65536, 128, 0, 0, cuda_device)
+    sms, resident = fixed_kernel.grid_limits(cuda_device, packed, "softmax")
+    assert plan == packed and grid == sms * resident
+
+
 @pytest.mark.cuda
 def test_smoke_int8_engine_runs_the_fixed_kernel(cuda_device):
     torch.backends.cuda.matmul.allow_tf32 = False

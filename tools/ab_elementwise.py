@@ -15,14 +15,14 @@ p 12, and the training batch with the rsqrt column on copies cycled past
 the L2), ``fixed_rmsnorm`` (phase 7d's ``time_fixed_rmsnorm``: the int8
 decode tick, prefill at p 8 and p 12, and a 2048-token prefill on copies
 cycled past the L2) or ``fixed_recip_softmax`` (phase 7d's
-``time_fixed_recip_softmax``).  Both trees' wrappers take the same
-arguments.  Run the sides in turns (A, B, B, A) in one call.  Prints the
+``time_fixed_recip_softmax``: (256, 128), the softmax there also at p 12,
+and (65536, 128) on copies cycled past the L2).  Both trees' wrappers take
+the same arguments.  Run the sides in turns (A, B, B, A) in one call.  Prints the
 card's name and power limit, then one JSON line ``{"label", "src",
 "clocks", "rows": [...]}`` with each row's times in ms and the SM and
 memory clocks nvidia-smi sampled while they were taken; for the int8 kinds
 also ``"sass"``, the SASS instruction count and digest of gs_fixed_recip_kernel
-and gs_fixed_softmax_kernel in the library that side built.  Needs one CUDA
-card.
+in the library that side built.  Needs one CUDA card.
 """
 
 from __future__ import annotations
