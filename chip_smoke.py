@@ -23,8 +23,11 @@ Phases, in order; any failure exits nonzero before the last line:
    gain (five a vector a thread holds) and four 16-byte stores a vector;
    the same for gs_fixed_softmax_kernel's 10 instances (no spill, shared
    memory only for the per-warp partials of the max and the sum, a float4
-   store a word in each word instance); the SASS instruction count and
-   digest of gs_fixed_recip_kernel.
+   store a word in each word instance); the same for
+   gs_fixed_recip_kernel's 3 instances (no spill, no shared memory or
+   barrier, a float4 store for each word a lane holds in each word
+   instance), then the SASS instruction counts and digests of the softmax's
+   and the rmsnorm's 18 instances.
 2. Kernels vs their plain PyTorch versions on the card: gs_rmsnorm at
    (rows, 2048), and with its rsqrt column (within 2^-20 relative) on each
    launch plan: rows 1 and 2048, d 37, 200, 8192, 16392 and 4097 (the last
@@ -102,7 +105,14 @@ Phases, in order; any failure exits nonzero before the last line:
    (half-warp segments), 1, 37, 200, 1024, 4096, 4100 and 2049 (rows of
    several warps), 16400 and 4097 past the register plans, views one and
    four bytes into their storage, a row of one repeated code beside a row
-   holding its max twice; (b) a 2-layer full-width cut
+   holding its max twice; then gs_fixed_recip in the three formats and at
+   p 12, both variants, at scales ±0.02, 4/127, 1, 2^-20 and 2^20,
+   bit-equal, one launch a call (in ``launches_recip`` and in the
+   profiler's trace; none for no codes), within the oracle's gate: every
+   code -128..127 aligned and 1, 2 and 3 bytes into its storage, (256, 128)
+   and (65536, 128) with every 17th code 0, lengths 1-7, 9 and 4097,
+   (256, 128) views 1, 2 and 3 bytes in, and 4 and 1 words a lane on a
+   grid of one block; (b) a 2-layer full-width cut
    on the card and on the CPU, teacher-forced with the CPU's tokens through
    a prefill and 8 decode steps, the int8 codes each of the 5 norms is
    given recorded at every step: (i) every card code within 1 of the
@@ -125,8 +135,7 @@ Phases, in order; any failure exits nonzero before the last line:
    at p 8 and p 12 and a 2048-token prefill on copies cycled past the L2,
    also beside ``F.rms_norm`` alone on an f32 copy of its input;
    gs_fixed_recip and gs_fixed_softmax at (256, 128) and at (65536, 128)
-   on copies cycled past the L2, and gs_fixed_softmax at (256, 128) at
-   p 12.
+   on copies cycled past the L2, and both at (256, 128) at p 12.
 8. The kernel benchmark's kernels (gs_recip, gs_rsqrt / gs_sqrt,
    gs_softmax), whose only caller is the kernel benchmark, in the reference
    too: (a) each against its plain version over the (dtype, p, iters,
@@ -275,7 +284,7 @@ def instance_report(pattern, name_of, ops: dict, log_text: str, sass_text: str) 
             name = name_of(found) if found else None
             if name:
                 report.setdefault(name, {}).update({op: 0 for op in ops}, instructions=0)
-        elif name and re.search(r"/\*[0-9a-f]{4}\*/\s+\S", line) and "NOP" not in line:
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line) and "NOP" not in line:
             report[name]["instructions"] += 1
             for op, op_pattern in ops.items():
                 report[name][op] += bool(re.search(op_pattern, line))
@@ -354,7 +363,9 @@ FIXED_RMSNORM_INSTANCE = re.compile(r"gs_fixed_rmsnorm_kernelILi(\d+)ELi(\d+)EE"
 # vecs 0 (the loop), 1, 2 at 16-byte vectors; 0, 1, 2, 4, 8 at one code
 FIXED_RMSNORM_INSTANCES = 8
 FIXED_RMSNORM_DYNAMIC_SMEM = 0  # the launch's (csrc/gs_fixed_rmsnorm.cu)
-FIXED_OTHERS = re.compile(r"(gs_fixed_recip_kernel)")
+# the int8 kernels this PR's recip work leaves as they were, each instance
+# by its mangled name: their SASS digests are the control of an A/B
+FIXED_OTHERS = re.compile(r"(gs_fixed_(?:softmax|rmsnorm)_kernelILi\d+ELi\d+EE)")
 
 
 def fixed_rmsnorm_instance_name(found) -> str:
@@ -369,8 +380,7 @@ def check_fixed_rmsnorm_build(lib: Path, log_text: str, sass_text: str) -> None:
     dynamic part: a staged rsqrt ROM would be 2^p words more), and in each
     16-byte vector instance 16-byte loads of x and gain (one and four a
     vector a thread holds, LDG.E.128 with or without .CONSTANT) and four
-    16-byte stores a vector.  Then the SASS instruction count and digest of
-    gs_fixed_recip_kernel."""
+    16-byte stores a vector."""
     from repro_torch.kernels import gs_rmsnorm as rms_kernel
 
     partials = 2 * (rms_kernel.MAX_THREADS // 32) * 4
@@ -394,7 +404,6 @@ def check_fixed_rmsnorm_build(lib: Path, log_text: str, sass_text: str) -> None:
         if "width 1," not in name and not (r["LDG.E.128"] >= 5 * vecs
                                            and r["STG.E.128"] >= 4 * vecs):
             fail(f"{name} lacks 16-byte loads of x and gain or 16-byte stores: {r}")
-    print(f"  SASS (NOP padding aside): {json.dumps(sass_digests(FIXED_OTHERS, sass_text))}")
 
 
 # gs_fixed_softmax_kernel<width, vecs> as it is mangled
@@ -438,6 +447,46 @@ def check_fixed_softmax_build(lib: Path, log_text: str, sass_text: str) -> None:
         vecs = max(1, int(name.split("vecs ")[1].rstrip(">")))
         if "width 1," not in name and r["STG.E*.128"] < vecs:
             fail(f"{name} lacks a float4 store a word: {r}")
+
+
+# gs_fixed_recip_kernel<width, words> as it is mangled
+FIXED_RECIP_INSTANCE = re.compile(r"gs_fixed_recip_kernelILi(\d+)ELi(\d+)EE")
+# words 1 and 4 a lane at 32-bit words of four codes; one code a lane
+FIXED_RECIP_INSTANCES = 3
+
+
+def fixed_recip_instance_name(found) -> str:
+    width, words = found.groups()
+    return f"gs_fixed_recip_kernel<width {width}, words {words}>"
+
+
+def check_fixed_recip_build(lib: Path, log_text: str, sass_text: str) -> None:
+    """Phase 1 for gs_fixed_recip_kernel: every instance's registers, shared
+    memory and SASS instructions; no spill, no shared memory and no barrier
+    (the ROM is read through the read-only cache, not staged), and in each
+    word instance a float4 store (STG.E.128, or STG.E.EF.128 as a streaming
+    store) for each word a lane holds.  Then the SASS instruction counts and
+    digests of the other int8 kernels' instances (``FIXED_OTHERS``)."""
+    ops = {"LDG.E": r"\bLDG\.E\b", "LDG.E.CONSTANT": r"\bLDG\.E\.CONSTANT\b",
+           "STG.E*.128": r"\bSTG\.E(?:\.[A-Z0-9]+)*\.128\b",
+           "shared/barrier": r"\b(?:LDS|STS|BAR)\b"}
+    report = instance_report(FIXED_RECIP_INSTANCE, fixed_recip_instance_name, ops, log_text,
+                             sass_text)
+    for name in sorted(report):
+        print(f"  {name}: {report[name]}")
+    if len(report) != FIXED_RECIP_INSTANCES:
+        fail(f"expected {FIXED_RECIP_INSTANCES} instances of gs_fixed_recip_kernel in "
+             f"{lib.name}'s report and SASS, found {sorted(report)}")
+    for name, r in report.items():
+        if "registers" not in r or r.get("spill") != 0 or "instructions" not in r:
+            fail(f"{name} spills or has no register report or SASS: {r}")
+        if r["smem"] or r["shared/barrier"]:
+            fail(f"{name} uses shared memory or a barrier: {r}")
+        words = int(name.split("words ")[1].rstrip(">"))
+        if "width 1," not in name and r["STG.E*.128"] < words:
+            fail(f"{name} lacks a float4 store a word: {r}")
+    print(f"  SASS (NOP padding aside) of the other int8 kernels: "
+          f"{json.dumps(sass_digests(FIXED_OTHERS, sass_text))}")
 
 
 def sass_digests(pattern, sass_text: str) -> dict:
@@ -1747,6 +1796,130 @@ def check_fixed_softmax_plans() -> float:
     return worst
 
 
+# gs_fixed_recip's inputs on the card: (label, length or shape, storage
+# offset, one block) — every code -128..127 (aligned, and 1, 2 and 3 bytes
+# into their storage: the single-code instance), the benchmark's (256, 128)
+# and (65536, 128) with every 17th code 0, lengths 1-7, 9 and 4097 (words
+# with an n % 4 tail, and below one word), (256, 128) views 1, 2 and 3 bytes
+# in, and on a grid of one block (``one_block_grid``: one SM holding one
+# block, so 4 words a lane once their trips fill it twice) 4 words a lane
+# over many trips and at the threshold, and 1 word, each with a tail
+FIXED_RECIP_CASES = (
+    (("codes", 256, 0, False), ("codes", 256, 1, False), ("codes", 256, 2, False),
+     ("codes", 256, 3, False), ("bench", (256, 128), 0, False),
+     ("hbm", (65536, 128), 0, False))
+    + tuple(("tail", n, 0, False) for n in (1, 2, 3, 4, 5, 6, 7, 9, 4097))
+    + tuple(("bench", (256, 128), off, False) for off in (1, 2, 3))
+    + tuple(("one block", n, 0, True) for n in (32771, 4099, 999)))
+# scales of both signs, a scale whose 1/scale rounds (4/127), and powers of
+# two far from 1
+FIXED_RECIP_SCALES = (0.02, -0.02, 4 / 127, 1.0, 2.0 ** -20, 2.0 ** 20)
+
+
+def fixed_recip_input(label: str, size, offset: int, seed: int):
+    """A FIXED_RECIP_CASES input on the card and its numpy codes: every
+    code once, random codes with every 17th 0, or random codes."""
+    n = int(np.prod(size))
+    if label == "codes":
+        codes = np.arange(-128, 128).astype(np.int8)
+    else:
+        codes = np.random.RandomState(seed).randint(-128, 128, n).astype(np.int8)
+        if label in ("bench", "hbm"):
+            codes[::17] = 0
+    buf = torch.zeros(n + offset, dtype=torch.int8, device="cuda")
+    x = buf[offset:].view(size)
+    x.view(-1).copy_(torch.from_numpy(codes))
+    return x, codes
+
+
+def fixed_recip_oracle_error(codes: np.ndarray, scale: float, out) -> float:
+    """bench_kernels.py's recip error against an f64 oracle, relative, over
+    the non-zero codes (a zero's +inf is checked bit for bit)."""
+    xf = codes.astype(np.float64).reshape(-1) * scale
+    got = out.double().cpu().numpy().reshape(-1)
+    live = xf != 0
+    return float(np.max(np.abs(got[live] - 1.0 / xf[live]) * np.abs(xf[live]), initial=0.0))
+
+
+def recip_trace(events, calls: int, case: str) -> int:
+    """The gs_fixed_recip kernel events of a trace of ``calls`` calls; fails
+    on any other device event, on more kernel events than calls, or on none.
+    Late in this script a trace comes back short of events (48 calls traced
+    as 32 kernels; one call alone as none), so the launches are counted on
+    the wrapper's counter and the trace shows that no other kernel ran."""
+    kernels = [e for e in events if "gs_fixed_recip_kernel" in e.name]
+    others = sorted({e.name for e in events} - {e.name for e in kernels})
+    if others or not 1 <= len(kernels) <= calls:
+        fail(f"gs_fixed_recip {case}: {len(kernels)} kernel events for {calls} calls, other "
+             f"device events {others}")
+    return len(kernels)
+
+
+def check_fixed_recip_plans() -> float:
+    """gs_fixed_recip on ``FIXED_RECIP_CASES`` in the three formats of
+    ``fixed_formats()`` and at p 12, both variants, at ``FIXED_RECIP_SCALES``:
+    bit-equal to the plain version, one launch a call counted on
+    ``launches_recip`` and no other kernel in the profiler's trace of the
+    calls (``recip_trace``), within FIXED_MARGIN x the format's bound of the
+    f64 oracle; no launch for an empty input.  Returns the worst |kernel -
+    plain| (0)."""
+    from repro_torch.core import formats
+    from repro_torch.kernels import gs_fixed as fixed_kernel
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    fmts = fixed_formats() + (("p12", formats.NumericFormat.fixed(24, p=12)),)
+    scales = [(s, torch.tensor(s, device=dev)) for s in FIXED_RECIP_SCALES]
+    settings = [(fname, fmt, variant, s, sc) for fname, fmt in fmts
+                for variant in ("feedback", "pipelined") for s, sc in scales]
+    for i, (label, size, offset, one_block) in enumerate(FIXED_RECIP_CASES):
+        x, codes = fixed_recip_input(label, size, offset, 300 + i)
+        grid = one_block_grid(fixed_kernel) if one_block else contextlib.nullcontext()
+        with grid:
+            plan, blocks = fixed_kernel.recip_launch(x.numel(), x.data_ptr() % 16, 0, dev)
+
+            def calls(outs):
+                for _, fmt, variant, _, sc in settings:
+                    outs.append(fixed_kernel.gs_fixed_recip(x, sc, **fmt.precision(),
+                                                            variant=variant))
+
+            calls([])  # the ROM words and grid limits are built outside the trace
+            outs = []
+            before = fixed_kernel.launches_recip
+            _, events = profiled(lambda: (time.sleep(0.1), calls(outs), time.sleep(0.1)))
+            launched = fixed_kernel.launches_recip - before
+            traced = recip_trace(events, len(settings), f"{label} {size} offset {offset}")
+            if launched != len(settings):
+                fail(f"gs_fixed_recip {label} {size} offset {offset}: {launched} launches "
+                     f"counted for {len(settings)} calls")
+        worst_oracle = {}
+        for (fname, fmt, variant, s, sc), got in zip(settings, outs):
+            kw = dict(fmt.precision(), variant=variant)
+            want = ref.fixed_recip(x, sc, **kw)
+            oracle = fixed_recip_oracle_error(codes, s, got)
+            bound = FIXED_MARGIN * fmt.error_bound()
+            if not (bit_equal(got, want) and oracle <= bound):
+                fail(f"gs_fixed_recip {label} {size} offset {offset} {plan} {fname} {variant} "
+                     f"scale {s}: bit-equal {bit_equal(got, want)}, max|kernel - plain| "
+                     f"{(got - want).abs().nan_to_num().max().item()}, oracle {oracle} "
+                     f"(bound {bound})")
+            worst_oracle[fname] = max(worst_oracle.get(fname, 0.0), oracle)
+        print(f"  gs_fixed_recip {label} {size} offset {offset} {plan} grid {blocks}: "
+              f"{len(settings)} calls bit-equal, {launched} launches counted, {traced} kernel "
+              f"events traced and no other; worst vs the f64 "
+              f"oracle over both variants and scales "
+              + ", ".join(f"{k} {o:.2e}" for k, o in worst_oracle.items()))
+    before = fixed_kernel.launches_recip
+    empty = fixed_kernel.gs_fixed_recip(torch.empty(0, 128, dtype=torch.int8, device=dev),
+                                        scales[0][1], **fmts[0][1].precision(),
+                                        variant="feedback")
+    if empty.shape != (0, 128) or fixed_kernel.launches_recip != before:
+        fail(f"gs_fixed_recip on no codes: shape {tuple(empty.shape)}, "
+             f"{fixed_kernel.launches_recip - before} launches")
+    torch.cuda.synchronize()
+    return 0.0
+
+
 # Phase 7b's gates on the card's run against the CPU's.  Each norm of the
 # int8 path quantizes its whole input by one amax, so a last-ulp difference
 # in the largest element (another summation order, a tensor-core product)
@@ -2022,7 +2195,7 @@ def time_fixed_recip_softmax():
     second of load, beside their plain versions and a dequantize-then-library
     call (``torch.reciprocal`` / ``torch.softmax`` on ``x.float() * scale``):
     at (256, 128) on one input (the L2 holds it; per call, by the profiler
-    and queued back to back), the softmax there also at p 12, and at
+    and queued back to back), both also at p 12, and at
     (65536, 128) on copies cycled past the L2 (``L2Ring``; per call and
     queued)."""
     from repro_torch.core import formats
@@ -2037,6 +2210,7 @@ def time_fixed_recip_softmax():
     under_load()
     for name, shape, label in (("gs_fixed_recip", (256, 128), "bench"),
                                ("gs_fixed_recip", (65536, 128), "hbm"),
+                               ("gs_fixed_recip", (256, 128), "bench_p12"),
                                ("gs_fixed_softmax", (256, 128), "bench"),
                                ("gs_fixed_softmax", (65536, 128), "hbm"),
                                ("gs_fixed_softmax", (256, 128), "bench_p12")):
@@ -2486,6 +2660,7 @@ def main() -> None:
     check_rmsnorm_build(lib, log.read_text(), sass_text)
     check_fixed_rmsnorm_build(lib, log.read_text(), sass_text)
     check_fixed_softmax_build(lib, log.read_text(), sass_text)
+    check_fixed_recip_build(lib, log.read_text(), sass_text)
 
     print("== 2. kernels vs plain versions")
     worst = check_kernels()
@@ -2510,6 +2685,7 @@ def main() -> None:
     worst.update(check_fixed_kernels())
     worst["gs_fixed_rmsnorm"] = max(worst["gs_fixed_rmsnorm"], check_fixed_rmsnorm_plans())
     worst["gs_fixed_softmax"] = max(worst["gs_fixed_softmax"], check_fixed_softmax_plans())
+    worst["gs_fixed_recip"] = max(worst["gs_fixed_recip"], check_fixed_recip_plans())
     int8_card_vs_cpu(args.seed)
     counts_int8, stats["int8"] = serve_int8(args.seed, seq_f32)
     timing.update(time_fixed_kernels())

@@ -48,9 +48,11 @@ _SIGNATURES = {
     # beta1, 1-beta1, beta2, 1-beta2, eps, weight_decay, p, iters, pipelined,
     # rsqrt_scale, stream
     "gs_adam_launch": [_P] * 10 + [_L] + [_F] * 6 + [_I] * 3 + [_F, _P],
-    # x, inv_scale, words, out, n, frac_bits, p, iters, pipelined,
-    # mitchell_iters, stream
-    "gs_fixed_recip_launch": [_P] * 4 + [_L] + [_I] * 5 + [_P],
+    # x, scale, words, out, n, frac_bits, p, iters, pipelined, mitchell_iters,
+    # vector, lane_words, grid, stream
+    "gs_fixed_recip_launch": [_P] * 4 + [_L] + [_I] * 8 + [_P],
+    # vector, lane_words, threads, blocks (out)
+    "gs_fixed_recip_occupancy": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
     # x, scale, words, out, rows, d, frac_bits, p, iters, pipelined,
     # mitchell_iters, vector, vecs, row_threads, rows_per_block, grid, stream
     "gs_fixed_softmax_launch": [_P] * 4 + [_I] * 12 + [_P],

@@ -23,8 +23,8 @@
 // (C++ leaves wider shifts undefined where XLA defines them as 0):
 // shl32() returns 0 for amounts >= 32, and the Mitchell right shift is
 // clamped to 31 as in the reference.  The ROM is an indexed load of the
-// integer words, left-aligned to F by the host: from shared memory in
-// gs_fixed.cu, one word a row through the read-only cache in
+// integer words, left-aligned to F by the host, through the read-only
+// cache: one word a code in gs_fixed.cu, one word a row in
 // gs_fixed_softmax.cu and gs_fixed_rmsnorm.cu.
 #pragma once
 
@@ -34,8 +34,9 @@
 
 namespace gsf {
 
-// One launch's datapath settings; `words` holds the 2^p ROM words, either the
-// block's shared-memory copy or the left-aligned words in device memory.
+// One launch's datapath settings; `words` holds left-aligned ROM words in
+// device memory: all 2^p in gs_fixed_softmax.cu, the int8-reachable
+// subsample (every 2^(p - 6)th word) in gs_fixed.cu.
 struct Datapath {
   const uint32_t* words;
   int F;
@@ -44,12 +45,6 @@ struct Datapath {
   int pipelined;
   int mitchell_iters;
 };
-
-// Copies the 2^p ROM words into shared memory; ends with a barrier.
-__device__ __forceinline__ void stage_words(uint32_t* dst, const uint32_t* src, int p) {
-  for (int i = threadIdx.x; i < (1 << p); i += blockDim.x) dst[i] = src[i];
-  __syncthreads();
-}
 
 __device__ __forceinline__ uint32_t msb32(uint32_t x) {
   return x == 0u ? 0u : 31u - static_cast<uint32_t>(__clz(x));
@@ -91,22 +86,43 @@ __device__ __forceinline__ void divide_pass(uint32_t& q, uint32_t& r, int i,
   if (i != dp.iters - 1) r = mitchell ? mitchell_mult(r, k, dp.F) : mult(r, k, dp.F);
 }
 
-// q = n / d on registers from the ROM word k1: MULT 1 and 2, then `iters`
-// passes; the first `mitchell_iters` passes multiply with Mitchell's block.
+// q = n / d on registers from the ROM word k1, for N independent chains
+// side by side: MULT 1 and 2, then `iters` passes, each advancing every
+// chain; the first `mitchell_iters` passes multiply with Mitchell's block.
 // feedback: one pass body in a runtime loop; pipelined: a full unroll.
-__device__ __forceinline__ uint32_t divide(uint32_t n, uint32_t d, uint32_t k1,
-                                           const Datapath& dp) {
-  uint32_t q = mult(n, k1, dp.F);
-  uint32_t r = mult(d, k1, dp.F);
+template <int N>
+__device__ __forceinline__ void divide(const uint32_t (&n)[N], const uint32_t (&d)[N],
+                                       const uint32_t (&k1)[N], const Datapath& dp,
+                                       uint32_t (&q)[N]) {
+  uint32_t r[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    q[j] = mult(n[j], k1[j], dp.F);
+    r[j] = mult(d[j], k1[j], dp.F);
+  }
   if (dp.pipelined) {
 #pragma unroll
     for (int i = 0; i < gs::kMaxPipelinedIters; ++i)
-      if (i < dp.iters) divide_pass(q, r, i, dp);
+      if (i < dp.iters) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) divide_pass(q[j], r[j], i, dp);
+      }
   } else {
 #pragma unroll 1
-    for (int i = 0; i < dp.iters; ++i) divide_pass(q, r, i, dp);
+    for (int i = 0; i < dp.iters; ++i) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) divide_pass(q[j], r[j], i, dp);
+    }
   }
-  return q;
+}
+
+// One chain of divide<N>.
+__device__ __forceinline__ uint32_t divide(uint32_t n, uint32_t d, uint32_t k1,
+                                           const Datapath& dp) {
+  const uint32_t nn[1] = {n}, dd[1] = {d}, kk[1] = {k1};
+  uint32_t q[1];
+  divide<1>(nn, dd, kk, dp, q);
+  return q[0];
 }
 
 // 2h -> 1/sqrt(m) for the register m in [1, 4), from the rsqrt ROM word y0.

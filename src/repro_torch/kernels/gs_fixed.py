@@ -16,7 +16,12 @@ element (:func:`launch_plan`): 16-byte vectors of 16 codes when d is a
 multiple of 16 and every pointer is 16-byte aligned, the vectors a thread
 holds and the threads a row, rows a block, and a grid of at most SMs x
 resident blocks (:func:`grid_limits` queries the card once per device and
-instance).  The softmax's plan (:func:`softmax_plan`) is its own, so that
+instance).  The recip's plan (:func:`recip_launch`) is elementwise: 32-bit
+words of four codes when n >= 4, x is 4-byte and out 16-byte aligned, else
+single codes; 4 words a lane when their trips fill two waves of resident
+blocks, else 1; the 64 ROM words an int8 code can reach
+(:func:`int8_recip_words`); 1/scale inside the kernel, so a call is one
+launch.  The softmax's plan (:func:`softmax_plan`) is its own, so that
 narrow rows leave no lane idle: 32-bit words of four codes when d is a
 multiple of 4, x is 4-byte and out 16-byte aligned; a row is a power-of-two
 segment of a warp (at d 128 one warp, a word a lane) or whole warps; when
@@ -39,6 +44,9 @@ VECTOR_BYTES = 16
 # the widest row whose int8 sum of squares stays below 2^32 in the kernel's
 # uint32 partials (128^2 x 2^17 = 2^31)
 MAX_RMSNORM_D = 1 << 17
+RECIP_WORD = 4  # int8 codes in the recip's 32-bit word
+RECIP_WORDS = (1, 4)  # the word instances: words a lane holds in flight
+RECIP_THREADS = 128  # kThreads in csrc/gs_fixed.cu
 SOFTMAX_WORD = 4  # int8 codes in the softmax's 32-bit word
 SOFTMAX_VECS = (1, 2, 4, 8)  # the register instances: vectors a thread holds
 SOFTMAX_BLOCK = 128  # threads a block the plan aims for: narrow rows share it
@@ -59,6 +67,20 @@ def rom_words_u32(kind: str, p: int, frac_bits: int, device: torch.device) -> to
     words = _roms.get(key)
     if words is None:
         words = _roms[key] = rom_words(kind, p, frac_bits, str(device)).to(torch.int32)
+    return words
+
+
+def int8_recip_words(p: int, frac_bits: int, device: torch.device) -> torch.Tensor:
+    """The recip ROM words an int8 code's index reaches, in the recip
+    kernel's operand: a magnitude has at most 7 significant bits, so for
+    p >= 6 the index is j << (p - 6), j < 64, and these are the words at
+    those indices (for p < 6 all 2^p).  Built once per (p, frac_bits,
+    device index), then one dict lookup."""
+    key = ("int8_recip", p, frac_bits, device.index)
+    words = _roms.get(key)
+    if words is None:
+        step = 1 << max(p - 6, 0)
+        words = _roms[key] = rom_words_u32("recip", p, frac_bits, device)[::step].contiguous()
     return words
 
 
@@ -84,21 +106,63 @@ def _stream(x: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(x.device.index)
 
 
+def recip_width(n: int, x_ptr: int, out_ptr: int) -> int:
+    """Codes a vector of the recip: a 32-bit word of 4 when ``n`` >= 4, x
+    is 4-byte and out 16-byte aligned (every word and float4 store then
+    is; the n % 4 tail runs one code a thread), else 1."""
+    if n >= RECIP_WORD and x_ptr % RECIP_WORD == 0 and out_ptr % VECTOR_BYTES == 0:
+        return RECIP_WORD
+    return 1
+
+
+def recip_plan(width: int, words: int) -> gs_rmsnorm.Plan:
+    """The recip instance of ``width``-code vectors, ``words`` a lane in
+    flight, in blocks of :data:`RECIP_THREADS` threads."""
+    return gs_rmsnorm.Plan(width, words, RECIP_THREADS, 1)
+
+
+def recip_launch(n: int, x_bits: int, out_bits: int,
+                 device: torch.device) -> Tuple[gs_rmsnorm.Plan, int]:
+    """(plan, grid) for ``n`` >= 1 codes whose x and out pointers are
+    ``x_bits`` and ``out_bits`` past a 16-byte boundary: in words, 4 words
+    a lane when their trips fill two waves of that instance's resident
+    blocks (a grid of one wave, every lane loading its second trip's words
+    while it computes the first's), else one vector a lane and a block per
+    :data:`RECIP_THREADS` vectors, at most one wave.  On an H100 at
+    (65536, 128) queued, 4 words a lane (3.1 waves) took 18.9 us and 1 word
+    21.8; at (256, 128) one word a lane in 64 blocks took 2.79 and 4 words
+    3.41."""
+    width = recip_width(n, x_bits, out_bits)
+    nvec = n // width
+    if width > 1:
+        words = RECIP_WORDS[-1]
+        plan = recip_plan(width, words)
+        sms, resident = grid_limits(device, plan, "recip")
+        if nvec >= 2 * words * RECIP_THREADS * sms * resident:
+            return plan, sms * resident
+    plan = recip_plan(width, 1)
+    return plan, gs_rmsnorm.grid_size(nvec, RECIP_THREADS, *grid_limits(device, plan, "recip"))
+
+
 def gs_fixed_recip(x: torch.Tensor, scale, *, p: int, frac_bits: int, iters: int,
                    variant: str, mitchell_iters: int) -> torch.Tensor:
-    """1/(x·scale) elementwise for int8 ``x`` of any shape; f32 out.  The
-    host-side ``1/scale`` is one f32 division, as in the reference."""
+    """1/(x·scale) elementwise for int8 ``x`` of any shape; f32 out.  One
+    launch a call, none for an empty x: the kernel takes the scale operand
+    and rounds 1/scale itself, as the reference's one f32 division does."""
     global launches_recip
     _check(x, "gs_fixed_recip", p, frac_bits, iters, variant)
-    inv_scale = 1.0 / scale_operand(scale, x.device)
-    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    rc = build.load().gs_fixed_recip_launch(
-        x.data_ptr(), inv_scale.data_ptr(),
-        rom_words_u32("recip", p, frac_bits, x.device).data_ptr(), out.data_ptr(),
-        x.numel(), frac_bits, p, iters, int(variant == "pipelined"), mitchell_iters,
-        _stream(x))
-    build.check(rc, "gs_fixed_recip")
-    launches_recip += 1
+    dev, n = x.device, x.numel()
+    out = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    if n:
+        plan, grid = recip_launch(n, x.data_ptr() % VECTOR_BYTES, out.data_ptr() % VECTOR_BYTES,
+                                  dev)
+        rc = build.load().gs_fixed_recip_launch(
+            x.data_ptr(), scale_operand(scale, dev).data_ptr(),
+            int8_recip_words(p, frac_bits, dev).data_ptr(), out.data_ptr(), n, frac_bits,
+            p, iters, int(variant == "pipelined"), mitchell_iters, int(plan.width > 1),
+            plan.vecs, grid, _stream(x))
+        build.check(rc, "gs_fixed_recip")
+        launches_recip += 1
     return out
 
 
@@ -111,8 +175,8 @@ def launch_plan(d: int, ptr_bits: int) -> gs_rmsnorm.Plan:
 
 
 def resident_blocks(plan: gs_rmsnorm.Plan, kernel: str = "rmsnorm") -> int:
-    """Blocks of the plan's instance of ``kernel`` (``"rmsnorm"`` or
-    ``"softmax"``) an SM of the current device holds at once
+    """Blocks of the plan's instance of ``kernel`` (``"rmsnorm"``,
+    ``"softmax"`` or ``"recip"``) an SM of the current device holds at once
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     blocks = ctypes.c_int(0)
     name = f"gs_fixed_{kernel}"

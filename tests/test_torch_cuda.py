@@ -514,6 +514,94 @@ def test_fixed_softmax_launch_plan_on_the_card(cuda_device):
     assert plan == packed and grid == sms * resident
 
 
+# gs_fixed_recip's scales (chip_smoke.py's FIXED_RECIP_SCALES): both signs,
+# a scale whose 1/scale rounds, and powers of two far from 1
+FIXED_RECIP_SCALES = (0.02, -0.02, 4 / 127, 1.0, 2.0 ** -20, 2.0 ** 20)
+
+
+def _recip_inputs(device):
+    """Every code -128..127 (aligned, and 1, 2 and 3 bytes into their
+    storage: the single-code instance), (256, 128) and (65536, 128) with
+    every 17th code 0 (the latter many trips a lane), lengths 1-7, 9 and
+    4097 (an n % 4 tail, or no whole word), and (256, 128) views 1, 2 and 3
+    bytes in."""
+    codes = torch.arange(-128, 128, device=device).to(torch.int8)
+    g = torch.Generator(device=device).manual_seed(12)
+    inputs = [_offset_view(codes, off) for off in (0, 1, 2, 3)]
+    for shape in ((256, 128), (65536, 128)):
+        x = torch.randint(-128, 128, shape, generator=g, device=device, dtype=torch.int8)
+        x.view(-1)[::17] = 0
+        inputs.append(x)
+    inputs += [inputs[4].flatten()[:n] for n in (1, 2, 3, 4, 5, 6, 7, 9, 4097)]
+    inputs += [_offset_view(inputs[4], off) for off in (1, 2, 3)]
+    return inputs
+
+
+def _recip_is_bit_equal(x, kw) -> None:
+    """gs_fixed_recip at every FIXED_RECIP_SCALES scale: one launch a call,
+    bit-equal to the plain version."""
+    for s in FIXED_RECIP_SCALES:
+        scale = torch.tensor(s, device=x.device)
+        before = fixed_kernel.launches_recip
+        got = fixed_kernel.gs_fixed_recip(x, scale, **kw)
+        assert fixed_kernel.launches_recip == before + 1
+        assert _bit_equal(got, ref.fixed_recip(x, scale, **kw)), (
+            tuple(x.shape), x.storage_offset(), s, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["feedback", "pipelined"])
+def test_fixed_recip_kernel_on_codes_views_tails_and_trips_is_bit_equal(cuda_device, variant):
+    """Every code, the single-code instance, the word instances' tails and
+    grid-stride loop, in the three formats and at p 12, at every scale:
+    bit-equal to the plain version, one launch a call, none for no codes."""
+    for x in _recip_inputs(cuda_device):
+        for fmt in FIXED_FORMATS + (formats.NumericFormat.fixed(24, p=12),):
+            _recip_is_bit_equal(x, dict(fmt.precision(), variant=variant))
+    kw = dict(FIXED_FORMATS[0].precision(), variant=variant)
+    before = fixed_kernel.launches_recip
+    empty = torch.empty(0, 128, dtype=torch.int8, device=cuda_device)
+    assert fixed_kernel.gs_fixed_recip(empty, 0.02, **kw).shape == empty.shape
+    assert fixed_kernel.launches_recip == before
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,words", [(32771, 4), (4099, 4), (999, 1)])
+def test_fixed_recip_word_instances_on_one_block_are_bit_equal(cuda_device, monkeypatch, n,
+                                                               words):
+    """On a grid of one block (one SM holding one block, so 4 words a lane
+    once their trips fill it twice, else 1), each word instance makes many
+    trips and runs a tail, bit-equal to the plain version in every format."""
+    monkeypatch.setattr(fixed_kernel, "grid_limits", lambda device, plan, kernel="rmsnorm": (1, 1))
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.randint(-128, 128, (n,), generator=g, device=cuda_device, dtype=torch.int8)
+    plan, grid = fixed_kernel.recip_launch(n, x.data_ptr() % 16, 0, cuda_device)
+    assert (plan.width, plan.vecs, grid) == (4, words, 1)
+    for fmt in FIXED_FORMATS + (formats.NumericFormat.fixed(24, p=12),):
+        for variant in ("feedback", "pipelined"):
+            _recip_is_bit_equal(x, dict(fmt.precision(), variant=variant))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_fixed_recip_launch_plan_on_the_card(cuda_device):
+    """Every gs_fixed_recip_kernel instance fits on an SM; the benchmark's
+    (256, 128) takes a word a lane in a block per 128 words, and
+    (65536, 128), whose trips fill two waves, 4 words a lane."""
+    card_sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for width, words in [(1, 1)] + [(4, w) for w in fixed_kernel.RECIP_WORDS]:
+        sms, resident = fixed_kernel.grid_limits(cuda_device, fixed_kernel.recip_plan(width, words),
+                                                 "recip")
+        assert sms == card_sms and resident >= 1
+    plan, grid = fixed_kernel.recip_launch(256 * 128, 0, 0, cuda_device)
+    assert (plan.width, plan.vecs, grid) == (4, 1, 64)
+    plan, grid = fixed_kernel.recip_launch(65536 * 128, 0, 0, cuda_device)
+    sms, resident = fixed_kernel.grid_limits(cuda_device, plan, "recip")
+    assert plan.vecs == 4 and grid == sms * resident
+    assert 65536 * 32 >= 2 * plan.vecs * fixed_kernel.RECIP_THREADS * grid
+
+
 @pytest.mark.cuda
 def test_smoke_int8_engine_runs_the_fixed_kernel(cuda_device):
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -14,15 +14,19 @@ under an ignored directory (its kernels build under that tree's ``build/``).
 p 12, and the training batch with the rsqrt column on copies cycled past
 the L2), ``fixed_rmsnorm`` (phase 7d's ``time_fixed_rmsnorm``: the int8
 decode tick, prefill at p 8 and p 12, and a 2048-token prefill on copies
-cycled past the L2) or ``fixed_recip_softmax`` (phase 7d's
-``time_fixed_recip_softmax``: (256, 128), the softmax there also at p 12,
-and (65536, 128) on copies cycled past the L2).  Both trees' wrappers take
-the same arguments.  Run the sides in turns (A, B, B, A) in one call.  Prints the
+cycled past the L2), ``fixed_recip_softmax`` (phase 7d's
+``time_fixed_recip_softmax``: (256, 128), both there also at p 12, and
+(65536, 128) on copies cycled past the L2) or ``fixed_recip_words``
+(gs_fixed_recip's word instances, each forced in turn, and the wrapper's
+own choice, at (256, 128) and at (65536, 128) on copies cycled past the
+L2; a tree whose wrapper has ``recip_launch`` only).  Both trees' wrappers
+take the same arguments.  Run the sides in turns (A, B, B, A) in one call.  Prints the
 card's name and power limit, then one JSON line ``{"label", "src",
 "clocks", "rows": [...]}`` with each row's times in ms and the SM and
 memory clocks nvidia-smi sampled while they were taken; for the int8 kinds
-also ``"sass"``, the SASS instruction count and digest of gs_fixed_recip_kernel
-in the library that side built.  Needs one CUDA card.
+also ``"sass"``, the SASS instruction counts and digests of the
+gs_fixed_softmax and gs_fixed_rmsnorm instances in the library that side
+built (``chip_smoke.FIXED_OTHERS``).  Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -35,12 +39,59 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
+def time_fixed_recip_words() -> dict:
+    """gs_fixed_recip queued (``queued_ms``; int8 format, feedback, scale
+    0.02) with each word instance forced in turn on a grid of at most one
+    wave of resident blocks, and with the wrapper's own plan, at (256, 128)
+    and at (65536, 128) on copies cycled past the L2."""
+    import torch
+
+    import chip_smoke
+    from repro_torch.core import formats
+    from repro_torch.kernels import gs_fixed, gs_rmsnorm
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    kw = dict(formats.format_for("int8").precision(), variant="feedback")
+    scale = torch.tensor(0.02, device=dev)
+    chosen = gs_fixed.recip_launch
+
+    def forced(words):
+        def launch(n, x_bits, out_bits, device):
+            plan = gs_fixed.recip_plan(gs_fixed.recip_width(n, x_bits, out_bits), words)
+            return plan, gs_rmsnorm.grid_size(n // plan.width, gs_fixed.RECIP_THREADS * words,
+                                              *gs_fixed.grid_limits(device, plan, "recip"))
+        return launch
+
+    rows = {}
+    chip_smoke.under_load()
+    for shape, label in (((256, 128), "bench"), ((65536, 128), "hbm")):
+        x = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+        kern = lambda x: gs_fixed.gs_fixed_recip(x, scale, **kw)  # noqa: E731
+        if label == "hbm":
+            fn = chip_smoke.L2Ring(x, 5 * x.numel()).calls(kern)
+        else:
+            fn = lambda: kern(x)  # noqa: E731
+        for words in gs_fixed.RECIP_WORDS + (None,):
+            gs_fixed.recip_launch = chosen if words is None else forced(words)
+            try:
+                plan, grid = gs_fixed.recip_launch(x.numel(), 0, 0, dev)
+                name = f"words {words}" if words else "chosen"
+                rows[(f"gs_fixed_recip {name}", label)] = dict(
+                    queued_ms=[chip_smoke.queued_ms(fn, 50)], plan=list(plan), grid=grid,
+                    shape=f"{shape} int8 p={kw['p']}")
+            finally:
+                gs_fixed.recip_launch = chosen
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="")
     ap.add_argument("--kernels", default="elementwise",
-                    choices=("elementwise", "rmsnorm", "fixed_rmsnorm", "fixed_recip_softmax"))
+                    choices=("elementwise", "rmsnorm", "fixed_rmsnorm", "fixed_recip_softmax",
+                             "fixed_recip_words"))
     args = ap.parse_args()
     src = Path(args.src).resolve()
     sys.path.insert(0, str(src))
@@ -59,7 +110,8 @@ def main() -> None:
     print(chip_smoke.nvidia_smi_line())
     timed = {"elementwise": chip_smoke.time_bench_kernels, "rmsnorm": chip_smoke.time_rmsnorm,
              "fixed_rmsnorm": chip_smoke.time_fixed_rmsnorm,
-             "fixed_recip_softmax": chip_smoke.time_fixed_recip_softmax}[args.kernels]
+             "fixed_recip_softmax": chip_smoke.time_fixed_recip_softmax,
+             "fixed_recip_words": time_fixed_recip_words}[args.kernels]
     with chip_smoke.SampledClocks() as clocks:
         rows = timed()
     line = {"label": args.label, "src": str(src), "kernels": args.kernels,
