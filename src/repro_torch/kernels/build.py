@@ -68,8 +68,11 @@ _SIGNATURES = {
     "gs_elementwise_launch": [_I] + [_P] * 4 + [_L] + [_I] * 3 + [_F] + [_I] * 3 + [_P],
     # op, is_bf16, vector, blocks (out)
     "gs_elementwise_occupancy": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
-    # x, rom, out, rows, d, p, iters, pipelined, is_bf16, stream
-    "gs_softmax_launch": [_P] * 3 + [_I] * 6 + [_P],
+    # x, rom, out, rows, d, p, iters, pipelined, is_bf16, vector, vecs,
+    # row_threads, rows_per_block, cluster, grid, stream
+    "gs_softmax_launch": [_P] * 3 + [_I] * 12 + [_P],
+    # is_bf16, vector, vecs, cluster, threads, units (out)
+    "gs_softmax_occupancy": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -6,6 +6,8 @@ GPU machine without it: ``python -m pytest tests/test_torch_cuda.py -q``.
 """
 
 import math
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -13,6 +15,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.benchmarks import bench_kernels  # noqa: E402
 from repro_torch.core import formats  # noqa: E402
@@ -695,6 +699,53 @@ def test_softmax_kernel_matches_plain_version(cuda_device, dtype, p, iters, vari
             assert ((got - want).abs() <= 2.0**-18 * want).all()
         else:
             assert ((got.view(torch.int16).int() - want.view(torch.int16).int()).abs() <= 1).all()
+    torch.cuda.synchronize()
+
+
+# gs_softmax's launch plans (chip_smoke.py's SOFTMAX_SHAPES beyond the three
+# above): single elements (33, 517), a cluster of 8 CTAs (2, 32000), a decode
+# batch of 256 at a 32000-token vocabulary, the widest row the cluster holds
+# and a row past it (the looping instance); then views one element into their storage,
+# (8, 32000) forced onto clusters of 2 and 4 CTAs (the timing sweep's), and
+# the rows a sampler masks
+SOFTMAX_PLAN_SHAPES = ((33, 517), (2, 32000), (256, 32000), (2, 131072), (2, 131076))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,p,iters,variant", ELEMENTWISE_PRECISIONS)
+def test_softmax_kernel_plans_match_plain_version(cuda_device, monkeypatch, dtype, p, iters,
+                                                   variant):
+    """Each launch plan within chip_smoke.py's card gate of the plain
+    version (f32 2^-18 of the value, bf16 one ulp, NaN in the same places),
+    one launch a call, masked rows with the plain version's NaN classes and
+    exact zeros."""
+    kw = dict(p=p, iters=iters, variant=variant)
+    r = np.random.RandomState(13)
+    rows = [(4 * r.randn(*shape)).astype(np.float32) for shape in SOFTMAX_PLAN_SHAPES]
+    cases = [(torch.from_numpy(x).to(cuda_device).to(dtype), None) for x in rows]
+    cases += [(_offset_view(x, 1), None) for x, _ in cases[:2]]
+    chosen = softmax_kernel.launch_plan
+
+    def forced(size):
+        def launch_plan(d, itemsize, ptr_bits):
+            width = softmax_kernel.gs_rmsnorm.vector_width(itemsize, d, ptr_bits)
+            return softmax_kernel.cluster_plan(width, d // width, size)
+        return launch_plan
+
+    wide = torch.from_numpy((4 * r.randn(8, 32000)).astype(np.float32)).to(cuda_device)
+    cases += [(wide.to(dtype), forced(size)) for size in (2, 4)]
+    cases += [(torch.from_numpy(chip_smoke.masked_rows(d)).to(cuda_device).to(dtype), None)
+              for d in chip_smoke.SOFTMAX_MASKED]
+    for x, plan_of in cases:
+        monkeypatch.setattr(softmax_kernel, "launch_plan", plan_of or chosen)
+        before = softmax_kernel.launches
+        got = softmax_kernel.gs_softmax(x, **kw)
+        assert softmax_kernel.launches == before + 1
+        assert got.shape == x.shape
+        assert chip_smoke.softmax_gate(got, ref.softmax(x, **kw))[0], (tuple(x.shape), plan_of)
+    monkeypatch.setattr(softmax_kernel, "launch_plan", chosen)
+    empty = softmax_kernel.gs_softmax(torch.empty(0, 384, device=cuda_device), **kw)
+    assert empty.shape == (0, 384) and softmax_kernel.launches == before + 1
     torch.cuda.synchronize()
 
 

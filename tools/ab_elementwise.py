@@ -19,14 +19,22 @@ cycled past the L2), ``fixed_recip_softmax`` (phase 7d's
 (65536, 128) on copies cycled past the L2) or ``fixed_recip_words``
 (gs_fixed_recip's word instances, each forced in turn, and the wrapper's
 own choice, at (256, 128) and at (65536, 128) on copies cycled past the
-L2; a tree whose wrapper has ``recip_launch`` only).  Both trees' wrappers
-take the same arguments.  Run the sides in turns (A, B, B, A) in one call.  Prints the
-card's name and power limit, then one JSON line ``{"label", "src",
-"clocks", "rows": [...]}`` with each row's times in ms and the SM and
-memory clocks nvidia-smi sampled while they were taken; for the int8 kinds
-also ``"sass"``, the SASS instruction counts and digests of the
-gs_fixed_softmax and gs_fixed_rmsnorm instances in the library that side
-built (``chip_smoke.FIXED_OTHERS``).  Needs one CUDA card.
+L2; a tree whose wrapper has ``recip_launch`` only), ``softmax`` (phase
+8d's gs_softmax rows alone: (16, 384), (8, 32000) at p 7 and p 12, and
+(256, 32000) f32 and bf16 on copies cycled past the L2) or
+``softmax_clusters`` (gs_softmax on the wrapper's own plan, a cluster of 8
+CTAs a row, and forced onto clusters of 2 and 4, at (8, 32000), and at
+(256, 32000) f32 and bf16 on copies cycled past the L2; a tree whose
+wrapper has ``cluster_plan`` only).
+Both trees' wrappers take the same arguments.  Run the sides in turns (A, B,
+B, A) in one call.  Prints the card's name and power limit, then one JSON
+line ``{"label", "src", "clocks", "rows": [...]}`` with each row's times in
+ms and the SM and memory clocks nvidia-smi sampled while they were taken;
+for the int8 kinds also ``"sass"``, the SASS instruction counts and digests
+of the gs_fixed_softmax and gs_fixed_rmsnorm instances in the library that
+side built (``chip_smoke.FIXED_OTHERS``), for the softmax kinds those of
+the gs_recip, gs_rsqrt and gs_rmsnorm instances (``chip_smoke.FLOAT_OTHERS``).
+Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -85,13 +93,65 @@ def time_fixed_recip_words() -> dict:
     return rows
 
 
+def time_softmax_clusters() -> dict:
+    """gs_softmax queued (``queued_ms``; p 7, iters 2, feedback) on the
+    wrapper's own plan (a cluster of ``gs_softmax.CLUSTER`` CTAs a row) and
+    forced onto clusters of 2 and 4 CTAs (``cluster_plan``), at (8, 32000),
+    and at (256, 32000) f32 and bf16 on copies cycled past the L2; each
+    plan's output first held to the card gate of the plain version."""
+    import torch
+
+    import chip_smoke
+    from repro_torch.kernels import gs_softmax, ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    kw = dict(p=7, iters=2, variant="feedback")
+    chosen = gs_softmax.launch_plan
+
+    def forced(size):
+        def launch_plan(d, itemsize, ptr_bits):
+            width = gs_softmax.gs_rmsnorm.vector_width(itemsize, d, ptr_bits)
+            return gs_softmax.cluster_plan(width, d // width, size)
+        return launch_plan
+
+    rows = {}
+    chip_smoke.under_load()
+    for shape, dtype, label in (((8, 32000), torch.float32, "large"),
+                                ((256, 32000), torch.float32, "hbm"),
+                                ((256, 32000), torch.bfloat16, "hbm bf16")):
+        x = (4 * torch.randn(shape, generator=g, device=dev)).to(dtype)
+        kern = lambda x: gs_softmax.gs_softmax(x, **kw)  # noqa: E731
+        if label.startswith("hbm"):
+            fn = chip_smoke.L2Ring(x, 2 * x.numel() * x.element_size()).calls(kern)
+        else:
+            fn = lambda: kern(x)  # noqa: E731
+        for name, plan_of in (("chosen", chosen), ("cluster 2", forced(2)),
+                              ("cluster 4", forced(4))):
+            gs_softmax.launch_plan = plan_of
+            try:
+                ok, err, limit = chip_smoke.softmax_gate(kern(x), ref.softmax(x, **kw))
+                if not ok:
+                    sys.exit(f"ab_elementwise: gs_softmax {name} {shape} {dtype}: {err} "
+                             f"({limit})")
+                plan = plan_of(shape[1], x.element_size(), 0)
+                rows[(f"gs_softmax {name}", label)] = dict(
+                    queued_ms=[chip_smoke.queued_ms(fn, 50)], plan=list(plan),
+                    grid=gs_softmax.grid_size(shape[0], plan, *gs_softmax.grid_limits(
+                        dev, dtype == torch.bfloat16, plan)),
+                    shape=f"{shape} {str(dtype).split('.')[-1]} p=7", max_err=err)
+            finally:
+                gs_softmax.launch_plan = chosen
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="")
     ap.add_argument("--kernels", default="elementwise",
                     choices=("elementwise", "rmsnorm", "fixed_rmsnorm", "fixed_recip_softmax",
-                             "fixed_recip_words"))
+                             "fixed_recip_words", "softmax", "softmax_clusters"))
     args = ap.parse_args()
     src = Path(args.src).resolve()
     sys.path.insert(0, str(src))
@@ -102,16 +162,18 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         sys.exit("ab_elementwise: torch finds no CUDA device")
-    from repro_torch.kernels import build, gs_elementwise, gs_fixed, gs_rmsnorm
+    from repro_torch.kernels import build, gs_elementwise, gs_fixed, gs_rmsnorm, gs_softmax
 
-    for module in (gs_elementwise, gs_rmsnorm, gs_fixed):
+    for module in (gs_elementwise, gs_rmsnorm, gs_fixed, gs_softmax):
         if Path(module.__file__).resolve().parents[2] != src:
             sys.exit(f"ab_elementwise: imported {module.__file__}, not the one under {src}")
     print(chip_smoke.nvidia_smi_line())
     timed = {"elementwise": chip_smoke.time_bench_kernels, "rmsnorm": chip_smoke.time_rmsnorm,
              "fixed_rmsnorm": chip_smoke.time_fixed_rmsnorm,
              "fixed_recip_softmax": chip_smoke.time_fixed_recip_softmax,
-             "fixed_recip_words": time_fixed_recip_words}[args.kernels]
+             "fixed_recip_words": time_fixed_recip_words,
+             "softmax": lambda: chip_smoke.time_bench_kernels(("gs_softmax",)),
+             "softmax_clusters": time_softmax_clusters}[args.kernels]
     with chip_smoke.SampledClocks() as clocks:
         rows = timed()
     line = {"label": args.label, "src": str(src), "kernels": args.kernels,
@@ -119,6 +181,9 @@ def main() -> None:
             "rows": [{"kernel": k, "label": label, **r} for (k, label), r in rows.items()]}
     if args.kernels.startswith("fixed"):
         line["sass"] = chip_smoke.sass_digests(chip_smoke.FIXED_OTHERS,
+                                               chip_smoke.sass(build.library_path()))
+    elif args.kernels.startswith("softmax"):
+        line["sass"] = chip_smoke.sass_digests(chip_smoke.FLOAT_OTHERS,
                                                chip_smoke.sass(build.library_path()))
     print(json.dumps(line))
 
