@@ -50,7 +50,10 @@ Phases, in order; any failure exits nonzero before the last line:
    three TF32 tensor-core passes; a single pass keeps about 11 bits), at
    bf16 the dk/dv kernel's f32 per-q-head dk, dv (two passes with p, ds);
    gs_adam on a 1.1e6-element leaf and on one of 131 x 129 elements (the
-   ``gs_adam`` row, f32 2^-18).
+   ``gs_adam`` row, f32 2^-18); then the flash forward (with and without
+   its residuals) and the backward pair on q rows holding a NaN, a +inf and
+   a value whose scores overflow, causal and not, with NaN, +inf and -inf in
+   the same places as the plain versions' (their TF32 passes emulated).
 3. Serve full-width tinyllama-1.1b (random weights from ``--seed``):
    ``Engine.run`` over 4 slots on 8 staggered requests (prompts 45..333
    tokens, 32 generated each) at float32, token for token against
@@ -73,7 +76,10 @@ Phases, in order; any failure exits nonzero before the last line:
    flash kernels at f32, at the 3xTF32 tensor-core rate, with the fp32 FMA
    bound beside it); the forward's device time over SDPA forward's at
    (1, 32, 333, 64) and, with residuals, at (4, 32, 512, 64); the backward
-   pair's over SDPA backward's, and the kernels SDPA backward runs.
+   pair's over SDPA backward's, and the kernels SDPA backward runs; then the
+   three flash kernels queued back to back (``queued_ms``) beside SDPA's
+   forward: the forward at (1, 32, 333, 64) f32 and bf16, and at
+   (4, 32, 512, 64) f32 the forward with residuals, dq and dk/dv.
 5. Where a serving run's time goes: wall vs device-busy time and the top
    kernels of one short request, from torch.profiler.
 6. Train: (a) one step of a 2-layer full-width tinyllama (batch 2, seq 128,
@@ -956,6 +962,75 @@ def check_training_kernels():
     return worst
 
 
+# C8: the flash kernels' NaN classes.  Each special value sits in the last q
+# row of its own head, which every key reaches, so the causal mask and the
+# kernels' tile skipping meet the same keys as the plain version; head 3
+# stays finite.  (case, column, value): a NaN, a +inf (its TF32 lo part is
+# inf - inf = NaN, so its scores are NaN) and a value whose scores overflow
+# to +inf and -inf.  Neither mask can leave a row with every score at -inf:
+# the causal mask keeps the diagonal, the length mask only keys past S.
+FLASH_SPECIAL_ROWS = (("nan", 3, float("nan")), ("+inf", 5, float("inf")),
+                      ("overflow", 7, 3e38))
+
+
+def classes(t) -> tuple:
+    """The (NaN, +inf, -inf) masks of ``t``."""
+    return torch.isnan(t), torch.isposinf(t), torch.isneginf(t)
+
+
+def flash_nan_classes(causal: bool, s: int = 70, device: str = "cuda") -> dict:
+    """The flash forward (with and without its (m, l) residuals) and the
+    backward pair at (1, 4, s, 64) / (1, 2, s, 64) f32 on
+    ``FLASH_SPECIAL_ROWS``, each side's backward on its own forward's
+    residuals, against the plain versions with the kernels' three TF32
+    passes emulated (``ref.split_matmul``).  Returns {tensor: (classes
+    equal, the kernel's (NaN, +inf, -inf) counts, the plain version's)}."""
+    from repro_torch.kernels import flash_attention as flash_kernel
+    from repro_torch.kernels import flash_attention_bwd as bwd_kernel
+    from repro_torch.kernels import ref
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, do = (torch.randn(1, 4, s, 64, generator=g, device=dev) for _ in range(2))
+    k, v = (torch.randn(1, 2, s, 64, generator=g, device=dev) for _ in range(2))
+    for head, (_, col, val) in enumerate(FLASH_SPECIAL_ROWS):
+        q[0, head, s - 1, col] = val
+    kw = dict(causal=causal, p=7, iters=2, variant="feedback")
+
+    def split(equation, a, b):
+        return ref.split_matmul(a, b, 3, equation)
+
+    out, m, l = flash_kernel.flash_attention(q, k, v, residuals=True, **kw)
+    got = {"out": flash_kernel.flash_attention(q, k, v, **kw), "out (residuals)": out,
+           "m": m, "l": l}
+    got.update(zip(("dq", "dk", "dv"), bwd_kernel.flash_attention_bwd(q, k, v, do, out, m, l,
+                                                                      **kw)))
+    out, m, l = ref.attention(q, k, v, residuals=True, product=split, **kw)
+    want = {"out": out, "out (residuals)": out, "m": m, "l": l}
+    want.update(zip(("dq", "dk", "dv"), ref.attention_bwd(q, k, v, do, out, m, l,
+                                                          product=split, **kw)))
+    result = {}
+    for name, a in got.items():
+        ca, cb = classes(a), classes(want[name])
+        result[name] = (all(bool(torch.equal(x, y)) for x, y in zip(ca, cb)),
+                        [int(x.sum()) for x in ca], [int(y.sum()) for y in cb])
+    return result
+
+
+def check_flash_nan_classes() -> None:
+    """Phase 2's C8 check: every tensor's NaN, +inf and -inf in the same
+    places as the plain version's, causal and not."""
+    for causal in (True, False):
+        result = flash_nan_classes(causal)
+        print(f"  flash NaN classes, causal={causal} (kernel (NaN, +inf, -inf) counts vs "
+              f"plain): " + "; ".join(f"{name} {'equal' if ok else 'DIFFER'} {a} / {b}"
+                                      for name, (ok, a, b) in result.items()))
+        bad = [name for name, (ok, _, _) in result.items() if not ok]
+        if bad:
+            fail(f"flash kernels, causal={causal}: NaN classes differ from the plain "
+                 f"versions' in {bad}")
+
+
 # -- phase 3 -------------------------------------------------------------------
 
 
@@ -1313,6 +1388,57 @@ def time_training_kernels():
               f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
     del q, k, v, do, out, w, grad, m0, v0, leaf, opt
     torch.cuda.empty_cache()
+    return rows
+
+
+def time_flash() -> dict:
+    """The three flash kernels queued back to back (``queued_ms``) at the
+    main paths' shapes, beside SDPA's forward and backward: the prefill
+    forward at (1, 32, 333, 64) / (1, 4, 333, 64) f32 and bf16, and at the
+    training shape (4, 32, 512, 64) / (4, 4, 512, 64) f32 the forward with
+    residuals, dq and dk/dv, all causal."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as flash_kernel
+    from repro_torch.kernels import flash_attention_bwd as bwd_kernel
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    rows = {}
+    under_load()
+    h, kh, hd = 32, 4, 64
+    for b, s, dtype, (p, iters) in ((1, max(PROMPTS), torch.float32, (7, 2)),
+                                    (1, max(PROMPTS), torch.bfloat16, (8, 0)),
+                                    (4, 512, torch.float32, (7, 2))):
+        q, do = (torch.randn(b, h, s, hd, generator=g, device=dev).to(dtype) for _ in range(2))
+        k, v = (torch.randn(b, kh, s, hd, generator=g, device=dev).to(dtype)
+                for _ in range(2))
+        kw = dict(causal=True, sm_scale=hd**-0.5, p=p, iters=iters, variant="feedback")
+        ke, ve = k.repeat_interleave(h // kh, dim=1), v.repeat_interleave(h // kh, dim=1)
+        name = str(dtype).split(".")[-1]
+        shape = f"({b}, {h}, {s}, {hd}) {name}"
+        sdpa = lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True)  # noqa: E731
+        if b == 1:
+            fwd = lambda: flash_kernel.flash_attention(q, k, v, **kw)  # noqa: E731
+            rows[("flash_attention", name)] = dict(
+                shape=shape, queued_ms=queued_ms(fwd, 50), sdpa_queued_ms=queued_ms(sdpa, 50))
+            continue
+        out, m, l = flash_kernel.flash_attention(q, k, v, residuals=True, **kw)
+        delta = torch.sum(do * out, dim=-1)
+        fwd = lambda: flash_kernel.flash_attention(q, k, v, residuals=True, **kw)  # noqa: E731
+        rows[("flash_attention", "residuals")] = dict(
+            shape=shape, queued_ms=queued_ms(fwd, 20), sdpa_queued_ms=queued_ms(sdpa, 20))
+        rows[("flash_attention_bwd_dq", name)] = dict(
+            shape=shape, queued_ms=queued_ms(lambda: bwd_kernel.dq(q, k, v, do, m, l, delta,
+                                                                   **kw), 20))
+        rows[("flash_attention_bwd_dkv", name)] = dict(
+            shape=shape, queued_ms=queued_ms(lambda: bwd_kernel.dkv(q, k, v, do, m, l, delta,
+                                                                    **kw), 20))
+    for (kname, label), r in rows.items():
+        lib = (f", SDPA forward {r['sdpa_queued_ms'] * 1e3:.2f} us"
+               if "sdpa_queued_ms" in r else "")
+        print(f"  {kname} {label} {r['shape']} causal: queued back to back (CUDA events) "
+              f"{r['queued_ms'] * 1e3:.2f} us{lib}")
     return rows
 
 
@@ -2794,6 +2920,7 @@ def main() -> None:
     print("== 2. kernels vs plain versions")
     worst = check_kernels()
     worst.update(check_training_kernels())
+    check_flash_nan_classes()
 
     print("== 3. serve full-width tinyllama-1.1b")
     counts, stats, seq_f32 = serve(args.seed)
@@ -2801,6 +2928,9 @@ def main() -> None:
     print("== 4. timing at the main paths' shapes")
     timing = time_kernels()
     timing.update(time_training_kernels())
+    with SampledClocks() as clocks:
+        flash_queued = time_flash()
+    print(f"  flash clocks (nvidia-smi every 100 ms): {json.dumps(clocks.summary())}")
 
     print("== 5. where a serving run's time goes (profiler)")
     profile_serving(args.seed)
@@ -2864,6 +2994,8 @@ def main() -> None:
                "shape": r["shape"], "launches_serve_f32": counts[name],
                "launches_train_f32": train32["counts"][name],
                "launches_int8_serve": counts_int8[name], "launches_bench": counts_bench[name]}
+        if (name, label) in flash_queued:
+            row["queued_ms"] = flash_queued[(name, label)]["queued_ms"]
         if name in ("gs_fixed_recip", "gs_fixed_softmax"):
             row["note"] = ("not on a model path of the reference either: only 7a and 7d "
                            "launch it; library_ms is a dequantize plus one call")

@@ -28,8 +28,8 @@
 // * Per 64-key tile a warp takes S = q k^T (16 x 64) in accumulators,
 //   scales and masks it, and runs the online softmax in registers: a row's
 //   max and its sum of exp(s - m) meet across the row's four lanes by two
-//   shuffles; m and l stay f32 in registers, summed tile by tile in key
-//   order.  P = exp(s - m) is fed back as the A operand of O += P V through
+//   shuffles (the max with max.NaN: a NaN score makes m NaN, as jnp.max
+//   does); m and l stay f32 in registers, summed tile by tile in key order.  P = exp(s - m) is fed back as the A operand of O += P V through
 //   the k-permutation of flash_mma.cuh, so P never goes through shared
 //   memory.  P V sums over keys, so each k-step's passes are summed apart
 //   (mma_step's kSum); q k^T, over the head dim, accumulates in the tensor
@@ -61,7 +61,7 @@ __device__ __forceinline__ float quad_reduce(float x) {
 #pragma unroll
   for (int o = 1; o < 4; o <<= 1) {
     const float y = __shfl_xor_sync(0xffffffffu, x, o);
-    x = kMax ? fmaxf(x, y) : x + y;
+    x = kMax ? flash_mma::max_nan(x, y) : x + y;
   }
   return x;
 }
@@ -157,7 +157,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int key = key0 + 8 * n + 2 * tig + (r & 1);
         const bool masked = key >= S || (causal && key > rows[r >> 1]);
         s[n][r] = masked ? gs::kNegInf : s[n][r] * sm_scale;
-        m_new[r >> 1] = fmaxf(m_new[r >> 1], s[n][r]);
+        m_new[r >> 1] = flash_mma::max_nan(m_new[r >> 1], s[n][r]);
       }
     float alpha[2], l_tile[2] = {0.0f, 0.0f};
 #pragma unroll
@@ -194,7 +194,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const gs::Rom rom{s_rom, p, iters, pipelined, 0.0f};
   float inv[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) inv[i] = gs::recip_positive(fmaxf(l[i], 1e-30f), rom);
+  for (int i = 0; i < 2; ++i) inv[i] = gs::recip_positive(flash_mma::max_nan(l[i], 1e-30f), rom);
 #pragma unroll
   for (int nd = 0; nd < kK; ++nd)
 #pragma unroll

@@ -156,7 +156,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const bool ok = rows[i] < S;
     m[i] = ok ? m_in[bh * S + rows[i]] : 0.0f;
-    inv[i] = ok ? gs::recip_positive(fmaxf(l_in[bh * S + rows[i]], 1e-30f), rom) : 0.0f;
+    inv[i] = ok ? gs::recip_positive(flash_mma::max_nan(l_in[bh * S + rows[i]], 1e-30f), rom) : 0.0f;
     delta[i] = ok ? delta_in[bh * S + rows[i]] : 0.0f;
   }
   float acc[kK][4];
@@ -288,7 +288,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (r_own < kBlock) {  // readers of this stage finished before the last barrier
       s_m[stage * kBlock + r_own] = st_ok ? st_m : 0.0f;
       s_inv[stage * kBlock + r_own] =
-          st_ok ? gs::recip_positive(fmaxf(st_l, 1e-30f), rom) : 0.0f;
+          st_ok ? gs::recip_positive(flash_mma::max_nan(st_l, 1e-30f), rom) : 0.0f;
       s_delta[stage * kBlock + r_own] = st_ok ? st_delta : 0.0f;
     }
     flash_mma::cp_async_wait_all();

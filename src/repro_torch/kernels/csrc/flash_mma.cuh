@@ -48,6 +48,15 @@ namespace flash_mma {
 
 constexpr int kTileRows = 64;  // rows of a staged tile
 
+// max(a, b), NaN if either is NaN (fmaxf would drop it), as jnp.maximum and
+// torch.amax keep it: the row max and the guard max(l, 1e-30) of the flash
+// kernels.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 template <typename T>
 struct IsExact {  // TF32 holds the type's values exactly
   static constexpr bool value = false;

@@ -248,6 +248,19 @@ def test_flash_backward_dkv_kernel_matches_an_f64_oracle_at_bf16(cuda_device, s,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s", [70, 333])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_keep_the_plain_versions_nan_classes(cuda_device, s, causal):
+    """A NaN, a +inf and an overflowing value in a q row: the forward with and
+    without residuals and the backward pair put NaN, +inf and -inf where the
+    plain versions (TF32 passes emulated) do; the row max keeps a NaN."""
+    result = chip_smoke.flash_nan_classes(causal, s=s)
+    assert all(ok for ok, _, _ in result.values()), result
+    # m: NaN on the NaN row and on the +inf row (its TF32 lo part is NaN)
+    assert result["m"][1][0] == 2 and result["l"][1][0] == len(chip_smoke.FLASH_SPECIAL_ROWS)
+
+
+@pytest.mark.cuda
 def test_adam_kernel_matches_plain_version(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(2)
     for n in (1, 1000, 131 * 129, 1 << 20):

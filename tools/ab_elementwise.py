@@ -25,7 +25,11 @@ L2; a tree whose wrapper has ``recip_launch`` only), ``softmax`` (phase
 ``softmax_clusters`` (gs_softmax on the wrapper's own plan, a cluster of 8
 CTAs a row, and forced onto clusters of 2 and 4, at (8, 32000), and at
 (256, 32000) f32 and bf16 on copies cycled past the L2; a tree whose
-wrapper has ``cluster_plan`` only).
+wrapper has ``cluster_plan`` only), or ``flash`` (phase 4's
+``time_flash``: the flash forward at (1, 32, 333, 64) f32 and bf16 and,
+at (4, 32, 512, 64) f32, the forward with residuals, dq and dk/dv, beside
+SDPA; the line also carries phase 2's NaN classes, causal and not,
+``chip_smoke.flash_nan_classes``).
 Both trees' wrappers take the same arguments.  Run the sides in turns (A, B,
 B, A) in one call.  Prints the card's name and power limit, then one JSON
 line ``{"label", "src", "clocks", "rows": [...]}`` with each row's times in
@@ -151,7 +155,7 @@ def main() -> None:
     ap.add_argument("--label", default="")
     ap.add_argument("--kernels", default="elementwise",
                     choices=("elementwise", "rmsnorm", "fixed_rmsnorm", "fixed_recip_softmax",
-                             "fixed_recip_words", "softmax", "softmax_clusters"))
+                             "fixed_recip_words", "softmax", "softmax_clusters", "flash"))
     args = ap.parse_args()
     src = Path(args.src).resolve()
     sys.path.insert(0, str(src))
@@ -173,7 +177,8 @@ def main() -> None:
              "fixed_recip_softmax": chip_smoke.time_fixed_recip_softmax,
              "fixed_recip_words": time_fixed_recip_words,
              "softmax": lambda: chip_smoke.time_bench_kernels(("gs_softmax",)),
-             "softmax_clusters": time_softmax_clusters}[args.kernels]
+             "softmax_clusters": time_softmax_clusters,
+             "flash": chip_smoke.time_flash}[args.kernels]
     with chip_smoke.SampledClocks() as clocks:
         rows = timed()
     line = {"label": args.label, "src": str(src), "kernels": args.kernels,
@@ -182,6 +187,9 @@ def main() -> None:
     if args.kernels.startswith("fixed"):
         line["sass"] = chip_smoke.sass_digests(chip_smoke.FIXED_OTHERS,
                                                chip_smoke.sass(build.library_path()))
+    elif args.kernels == "flash":
+        line["nan_classes"] = {f"causal={causal}": chip_smoke.flash_nan_classes(causal)
+                               for causal in (True, False)}
     elif args.kernels.startswith("softmax"):
         line["sass"] = chip_smoke.sass_digests(chip_smoke.FLOAT_OTHERS,
                                                chip_smoke.sass(build.library_path()))
