@@ -61,6 +61,21 @@ Phases, in order; any failure exits nonzero before the last line:
    fp32 params) on the same trace, whose tokens must be valid.  Both runs
    must launch gs_rmsnorm 45 x (prefills + decode ticks) times and flash
    attention 22 x prefills times.
+3b. The same parameters and trace through the paged pool
+   (``EngineConfig(pool="paged")``, page size 16), launch counts as in 3
+   with a preempted request's replay counted as a prefill and an exact
+   prefix hit's skipped one not: (a) the default arena, prefix sharing
+   off, tokens equal to the slot engine's and to ``generate_sequential``'s
+   under 3's near-tie rule, TTFT median and decode tok/s beside 3's and the
+   arena's bytes beside the slot pool's (printed, not gated); (b) an arena
+   of one s_max request and 8 pages more: at least one preemption and one
+   decode-time page append, the same tokens; (c) requests 3, 5 and 7 on
+   request 0's prompt under ``prefix="exact"``: at least one prefill
+   skipped and one page copied on write, tokens equal to
+   ``generate_sequential``'s; (d) in phase 7c, the int8 trace through the
+   paged pool (int8 arena), tokens equal to the int8 slot engine's.  Every
+   run ends with every slot free and no page in use but the prefix
+   index's; each prints the pool's ``stats()``.
 4. Timing at the main paths' shapes: gs_rmsnorm at decode (4, 2048),
    prefill (333, 2048) at f32, bf16 and p 12, and the training batch
    (2048, 2048) with the rsqrt column at f32 and bf16 on copies cycled past
@@ -136,8 +151,9 @@ Phases, in order; any failure exits nonzero before the last line:
    cache within 0.55 x the analytic bf16 pair
    (``benchmarks/bench_serve.py``'s QUANT_BYTES_BUDGET), the same tokens on
    a second run; TTFT, tok/s, peak memory and the share of phase
-   3's f32 tokens matched as a prefix (printed, not gated), and phase 5's
-   profile of one request through the int8 engine; (d) the three
+   3's f32 tokens matched as a prefix (printed, not gated), 3b (d) (the
+   same trace through the int8 paged pool, the int8 slot engine's tokens),
+   and phase 5's profile of one request through the int8 engine; (d) the three
    kernels timed beside their plain versions and a dequantize-then-library
    call (``F.rms_norm``, ``torch.reciprocal``, ``torch.softmax`` on
    ``x.float() * scale``), queued back to back (``queued_ms``) and per
@@ -1054,6 +1070,28 @@ def top2_gap(cfg, params, prompt, prefix) -> float:
     return float(top[0] - top[1])
 
 
+def near_tie_flips(cfg, params, reqs, res, want_tokens, got_name: str, want_name: str):
+    """Phase 3's rule: ``res``'s tokens equal ``want_tokens`` (rid -> tokens)
+    but where the greedy step that first differs is a near-tie (its top-2
+    probability gap below ``NEAR_TIE``); fails otherwise.  Returns the
+    excused (rid, step, gap) flips."""
+    flips = []
+    for r in reqs:
+        got, want = res[r.rid].tokens, want_tokens[r.rid]
+        if np.array_equal(got, want):
+            continue
+        n = min(len(got), len(want))
+        t = int(np.argmax(got[:n] != want[:n])) if np.any(got[:n] != want[:n]) else n
+        gap = top2_gap(cfg, params, r.prompt, want[:t])
+        print(f"  req {r.rid}: {got_name} and {want_name} differ from step {t}, top-2 "
+              f"probability gap {gap:.3e}")
+        if not gap < NEAR_TIE:
+            fail(f"req {r.rid}: {got_name} tokens {got.tolist()} != {want_name} "
+                 f"{want.tolist()} (gap {gap:.3e} is no near-tie)")
+        flips.append((r.rid, t, gap))
+    return flips
+
+
 def serve_run(engine, reqs, n_layers: int, fixed: bool = False):
     """One counted main-path run: counters zeroed just before, read just
     after.  The float path runs gs_rmsnorm, the int8 path (``fixed``)
@@ -1065,11 +1103,14 @@ def serve_run(engine, reqs, n_layers: int, fixed: bool = False):
     counts = ops.launch_counts()
     m = res.metrics
     norm = "gs_fixed_rmsnorm" if fixed else "gs_rmsnorm"
+    # prefills run: each admission, a preempted request's replay included,
+    # less the exact prefix hits, which skip theirs
+    prefills = m.first_tokens + m.preempted - m.prefill_skips
     want = {name: 0 for name in counts}  # the training kernels, the other norm: none
-    want.update({norm: (2 * n_layers + 1) * (m.first_tokens + m.decode_ticks),
-                 "flash_attention": n_layers * m.first_tokens})
+    want.update({norm: (2 * n_layers + 1) * (prefills + m.decode_ticks),
+                 "flash_attention": n_layers * prefills})
     print(f"  launches {counts}; expected {want} "
-          f"({m.first_tokens} prefills, {m.decode_ticks} decode ticks)")
+          f"({prefills} prefills, {m.decode_ticks} decode ticks)")
     if counts != want or min(counts[norm], counts["flash_attention"]) == 0:
         fail(f"launch counts {counts} != {want}")
     return res, counts
@@ -1103,20 +1144,7 @@ def serve(seed: int):
     engine = Engine(cfg, params, EngineConfig(n_slots=N_SLOTS, s_max=s_max))
     engine.run([Request(rid=0, prompt=reqs[0].prompt, max_new_tokens=2)])  # warm-up
     res, counts = serve_run(engine, reqs, cfg.n_layers)
-    flips = []
-    for r in reqs:
-        got, want = res[r.rid].tokens, seq[r.rid]
-        if np.array_equal(got, want):
-            continue
-        n = min(len(got), len(want))
-        t = int(np.argmax(got[:n] != want[:n])) if np.any(got[:n] != want[:n]) else n
-        gap = top2_gap(cfg, params, r.prompt, want[:t])
-        print(f"  req {r.rid}: engine and sequential differ from step {t}, top-2 "
-              f"probability gap {gap:.3e}")
-        if not gap < NEAR_TIE:
-            fail(f"req {r.rid}: engine tokens {got.tolist()} != sequential "
-                 f"{want.tolist()} (gap {gap:.3e} is no near-tie)")
-        flips.append((r.rid, t, gap))
+    flips = near_tie_flips(cfg, params, reqs, res, seq, "engine", "sequential")
     m = res.metrics
     ttft = sorted(m.ttft_s.values())
     print(f"  float32 Engine.run == generate_sequential on {len(reqs)} requests "
@@ -1142,9 +1170,146 @@ def serve(seed: int):
           f"{len(reqs)} equal to float32; TTFT median {ttft16:.1f} ms, decode "
           f"{m16.decode_tok_per_s:.1f} tok/s")
     serve_stats["bf16"] = {"ttft_ms_median": ttft16, "decode_tok_per_s": m16.decode_tok_per_s}
-    del params, engine
+    serve_stats["cache_bytes"] = m.cache_bytes
+    del engine
     torch.cuda.empty_cache()
-    return counts, serve_stats, seq
+    slot_tokens = {r.rid: res[r.rid].tokens for r in reqs}
+    return counts, serve_stats, seq, (cfg, params, slot_tokens)
+
+
+# -- phase 3b ------------------------------------------------------------------
+
+PAGE_SIZE = 16
+TIGHT_EXTRA_PAGES = 8  # (b): the arena holds one s_max request and this many pages more
+SHARED_COPIES = (3, 5, 7)  # (c): these requests take request 0's prompt
+# preempt_after_ticks past any run's length: the engine then preempts only
+# when the arena cannot back a decode write.  With the default 3, a head of
+# line that waits 3 ticks for a free slot preempts the youngest request too
+# (the reference's rule, ROADMAP C10), which changes the schedule
+NO_STALL_PREEMPT = 10**9
+
+
+def paged_run(engine, reqs, n_layers: int, label: str, fixed: bool = False):
+    """One counted run through a paged engine (``serve_run``'s launch
+    counts), its pool's stats printed; at the end every slot is free, and
+    once the prefix index is cleared no page is in use and every refcount
+    but the trash page's is 0."""
+    pools = []
+    make = engine._make_pool
+
+    def kept():
+        pools.append(make())
+        return pools[-1]
+
+    engine._make_pool = kept
+    try:
+        res, counts = serve_run(engine, reqs, n_layers, fixed=fixed)
+    finally:
+        del engine._make_pool
+    st = res.metrics.pool
+    print(f"  {label}: preempted {res.metrics.preempted}, prefill tokens "
+          f"{res.metrics.prefill_tokens}; pool stats {json.dumps(st)}")
+    pool = pools[-1]
+    pool.clear_prefix()
+    if st["free_slots"] != st["n_slots"] or pool.pages_in_use or pool.ref[0] != 1 or \
+            pool.ref[1:].any():
+        fail(f"{label}: {st['free_slots']} of {st['n_slots']} slots free; with the prefix "
+             f"index cleared {pool.pages_in_use} pages in use, refcounts "
+             f"{np.flatnonzero(pool.ref).tolist()} nonzero")
+    return res, counts
+
+
+def serve_paged(seed: int, served, seq, slot_stats):
+    """Phase 3b: phase 3's parameters and trace through the paged pool (page
+    size 16): (a) the default arena, prefix sharing off, against the slot
+    engine's and generate_sequential's tokens; (b) an arena of one s_max
+    request and ``TIGHT_EXTRA_PAGES`` pages more, where decode-time appends
+    run out and the youngest request is preempted and replayed; (c) the
+    trace with requests ``SHARED_COPIES`` on request 0's prompt under
+    prefix="exact", which skips their prefills and copies the boundary page.
+    Every run ends with no page held but by the prefix index
+    (``paged_run``)."""
+    import dataclasses
+
+    from repro_torch.serving import Engine, EngineConfig, Request
+
+    cfg, params, slot_tokens = served
+    reqs = trace(cfg.vocab, seed)
+    s_max = max(PROMPTS) + GEN
+    base = EngineConfig(n_slots=N_SLOTS, s_max=s_max, pool="paged", page_size=PAGE_SIZE,
+                        prefix="off")
+    engine = Engine(cfg, params, base)
+    engine.run([Request(rid=0, prompt=reqs[0].prompt, max_new_tokens=2)])  # warm-up
+    res, counts = paged_run(engine, reqs, cfg.n_layers, "(a) default arena")
+    flips = near_tie_flips(cfg, params, reqs, res, slot_tokens, "paged", "slot engine")
+    flips += near_tie_flips(cfg, params, reqs, res, seq, "paged", "sequential")
+    m = res.metrics
+    ttft = float(np.median(list(m.ttft_s.values())) * 1e3)
+    print(f"  (a) float32 paged Engine.run == slot engine == generate_sequential on "
+          f"{len(reqs)} requests ({len(flips)} near-tie flips); TTFT median {ttft:.1f} ms "
+          f"(slot, phase 3: {slot_stats['ttft_ms_median']:.1f}), decode "
+          f"{m.decode_tok_per_s:.1f} tok/s (slot: {slot_stats['decode_tok_per_s']:.1f}) over "
+          f"{m.decode_ticks} ticks; arena {m.cache_bytes / 1e9:.4f} GB "
+          f"({m.pool['n_pages']} pages of {PAGE_SIZE}) against the slot pool's "
+          f"{slot_stats['cache_bytes'] / 1e9:.4f} GB; peak {m.pool['peak_pages_in_use']} "
+          f"pages in use ({m.pool['peak_pages_in_use'] * m.cache_bytes / m.pool['n_pages'] / 1e9:.4f} GB)")
+    stats = {"ttft_ms_median": ttft, "decode_tok_per_s": m.decode_tok_per_s,
+             "preempted": m.preempted, "prefill_tokens": m.prefill_tokens,
+             "arena_bytes": m.cache_bytes, "slot_cache_bytes": slot_stats["cache_bytes"],
+             "flips": flips, "pool": m.pool}
+    # the same run with stall preemption off, beside the slot engine run again
+    # in the same warm state: the paged indirection alone
+    calm = Engine(cfg, params, dataclasses.replace(base, preempt_after_ticks=NO_STALL_PREEMPT))
+    res_n, _ = paged_run(calm, reqs, cfg.n_layers, "(a) without stall preemption")
+    near_tie_flips(cfg, params, reqs, res_n, slot_tokens, "paged", "slot engine")
+    slot_again = Engine(cfg, params, EngineConfig(n_slots=N_SLOTS, s_max=s_max)).run(reqs)
+    mn, ms = res_n.metrics, slot_again.metrics
+    med = lambda m: float(np.median(list(m.ttft_s.values())) * 1e3)  # noqa: E731
+    print(f"  (a) without stall preemption: {mn.preempted} preemptions, TTFT median "
+          f"{med(mn):.1f} ms, decode {mn.decode_tok_per_s:.1f} tok/s over {mn.decode_ticks} "
+          f"ticks; the slot engine again: TTFT median {med(ms):.1f} ms, decode "
+          f"{ms.decode_tok_per_s:.1f} tok/s over {ms.decode_ticks} ticks")
+    stats["no_stall_preempt"] = {"ttft_ms_median": med(mn),
+                                 "decode_tok_per_s": mn.decode_tok_per_s,
+                                 "decode_ticks": mn.decode_ticks, "preempted": mn.preempted,
+                                 "slot_ttft_ms_median": med(ms),
+                                 "slot_decode_tok_per_s": ms.decode_tok_per_s,
+                                 "slot_decode_ticks": ms.decode_ticks}
+
+    pages_per_slot = -(-s_max // PAGE_SIZE)
+    tight = Engine(cfg, params, dataclasses.replace(
+        base, n_pages=pages_per_slot + 1 + TIGHT_EXTRA_PAGES))
+    res_b, _ = paged_run(tight, reqs, cfg.n_layers, "(b) tight arena")
+    near_tie_flips(cfg, params, reqs, res_b, seq, "tight-arena paged", "sequential")
+    mb = res_b.metrics
+    if not (mb.preempted >= 1 and mb.pool["appended_pages"] >= 1):
+        fail(f"(b): preempted {mb.preempted}, pool {mb.pool}: the tight arena must preempt "
+             f"at least once and append at least one page")
+    print(f"  (b) tight arena, {tight.ecfg.n_pages} pages: tokens == generate_sequential, "
+          f"{mb.preempted} preemptions, {mb.pool['appended_pages']} pages appended, "
+          f"{mb.prefill_tokens} prefill tokens (the trace's {sum(PROMPTS)} plus the replays), "
+          f"decode {mb.decode_tok_per_s:.1f} tok/s")
+    stats["tight"] = {"n_pages": tight.ecfg.n_pages, "preempted": mb.preempted,
+                      "pool": mb.pool, "decode_tok_per_s": mb.decode_tok_per_s}
+
+    shared = [Request(rid=r.rid, prompt=reqs[0].prompt if r.rid in SHARED_COPIES else r.prompt,
+                      max_new_tokens=GEN, arrival_time=r.arrival_time) for r in reqs]
+    seq_c = {r.rid: seq[0] if r.rid in SHARED_COPIES else seq[r.rid] for r in shared}
+    exact = Engine(cfg, params, dataclasses.replace(base, prefix="exact"))
+    res_c, _ = paged_run(exact, shared, cfg.n_layers, "(c) shared prompts")
+    near_tie_flips(cfg, params, shared, res_c, seq_c, "prefix-sharing paged", "sequential")
+    mc = res_c.metrics
+    if not (mc.prefill_skips >= 1 and mc.pool["cow_copies"] >= 1):
+        fail(f"(c): prefill_skips {mc.prefill_skips}, pool {mc.pool}: the shared prompt "
+             f"must skip a prefill and copy its boundary page")
+    print(f"  (c) prefix=exact, requests {SHARED_COPIES} on request 0's prompt: tokens == "
+          f"generate_sequential, {mc.prefill_skips} prefills skipped, {mc.prefix_hits} hits "
+          f"covering {mc.prefix_hit_tokens} tokens, {mc.pool['cow_copies']} pages copied on "
+          f"write, TTFT median {np.median(list(mc.ttft_s.values())) * 1e3:.1f} ms")
+    stats["shared"] = {"prefill_skips": mc.prefill_skips, "pool": mc.pool}
+    del engine, calm, tight, exact
+    torch.cuda.empty_cache()
+    return counts, stats
 
 
 # -- phase 4 -------------------------------------------------------------------
@@ -2254,7 +2419,12 @@ def serve_int8(seed: int, seq_f32):
     engine = Engine(cfg_q, params, EngineConfig(n_slots=N_SLOTS, s_max=s_max))
     torch.cuda.synchronize()
     t_quant = time.perf_counter() - t0
-    del params  # the engine holds only the int8 tree
+    # one activation scale over the tick batch couples the rows, so the
+    # tokens hold only on the slot engine's schedule: no stall preemption
+    paged = Engine(cfg_q, params, EngineConfig(n_slots=N_SLOTS, s_max=s_max, pool="paged",
+                                               page_size=PAGE_SIZE, prefix="off",
+                                               preempt_after_ticks=NO_STALL_PREEMPT))
+    del params  # the engines hold only the int8 trees
     torch.cuda.empty_cache()
     q_bytes = tree_bytes(engine.params)
     engine.run([Request(rid=0, prompt=reqs[0].prompt, max_new_tokens=2)])  # warm-up
@@ -2269,6 +2439,20 @@ def serve_int8(seed: int, seq_f32):
     again = engine.run(reqs)
     if not all(np.array_equal(again[r.rid].tokens, res[r.rid].tokens) for r in reqs):
         fail("int8 engine: a second run of the same trace gave other tokens")
+    # phase 3b (d): the same trace through the int8 paged pool (int8 arena)
+    paged.run([Request(rid=0, prompt=reqs[0].prompt, max_new_tokens=2)])  # warm-up
+    res_p, counts_paged = paged_run(paged, reqs, cfg.n_layers, "3b (d) int8 paged", fixed=True)
+    differ = [r.rid for r in reqs if not np.array_equal(res_p[r.rid].tokens, res[r.rid].tokens)]
+    if differ:
+        fail(f"3b (d): the int8 paged engine's tokens differ from the int8 slot engine's in "
+             f"requests {differ}")
+    mp = res_p.metrics
+    print(f"  3b (d) int8 paged Engine.run == int8 slot engine on {len(reqs)} requests; int8 "
+          f"arena {mp.cache_bytes / 1e9:.4f} GB against the slot pool's "
+          f"{res.metrics.cache_bytes / 1e9:.4f} GB; TTFT median "
+          f"{np.median(list(mp.ttft_s.values())) * 1e3:.1f} ms, decode "
+          f"{mp.decode_tok_per_s:.1f} tok/s")
+    del paged
     m = res.metrics
     cache_f32 = m.cache_bytes * 4  # the same pool with f32 K/V
     bf16_baseline = (f32_bytes + cache_f32) / 2.0
@@ -2304,10 +2488,12 @@ def serve_int8(seed: int, seq_f32):
              "decode_tok_per_s": m.decode_tok_per_s, "peak_gb": peak_gb,
              "param_bytes": q_bytes, "f32_param_bytes": f32_bytes,
              "cache_bytes": m.cache_bytes, "params_ratio": ratio_params,
-             "bytes_vs_bf16": ratio_budget, "f32_prefix_share": share}
+             "bytes_vs_bf16": ratio_budget, "f32_prefix_share": share,
+             "paged": {"arena_bytes": mp.cache_bytes, "decode_tok_per_s": mp.decode_tok_per_s,
+                       "pool": mp.pool}}
     del engine
     torch.cuda.empty_cache()
-    return counts, stats
+    return counts, stats, counts_paged
 
 
 # phase 7d's gs_fixed_rmsnorm rows, int8 format: (label, rows, p, on copies
@@ -2923,7 +3109,12 @@ def main() -> None:
     check_flash_nan_classes()
 
     print("== 3. serve full-width tinyllama-1.1b")
-    counts, stats, seq_f32 = serve(args.seed)
+    counts, stats, seq_f32, served = serve(args.seed)
+
+    print("== 3b. serve full-width tinyllama-1.1b through the paged pool")
+    counts_paged, stats["paged"] = serve_paged(args.seed, served, seq_f32, stats)
+    del served
+    torch.cuda.empty_cache()
 
     print("== 4. timing at the main paths' shapes")
     timing = time_kernels()
@@ -2946,7 +3137,7 @@ def main() -> None:
     worst["gs_fixed_softmax"] = max(worst["gs_fixed_softmax"], check_fixed_softmax_plans())
     worst["gs_fixed_recip"] = max(worst["gs_fixed_recip"], check_fixed_recip_plans())
     int8_card_vs_cpu(args.seed)
-    counts_int8, stats["int8"] = serve_int8(args.seed, seq_f32)
+    counts_int8, stats["int8"], counts_int8_paged = serve_int8(args.seed, seq_f32)
     timing.update(time_fixed_kernels())
 
     print("== 8. the kernel benchmark's kernels: gs_recip, gs_rsqrt / gs_sqrt, gs_softmax")
@@ -2993,7 +3184,9 @@ def main() -> None:
                "library_ms": r["library_ms"], "device_ms": r["device_ms"][0],
                "shape": r["shape"], "launches_serve_f32": counts[name],
                "launches_train_f32": train32["counts"][name],
-               "launches_int8_serve": counts_int8[name], "launches_bench": counts_bench[name]}
+               "launches_int8_serve": counts_int8[name], "launches_bench": counts_bench[name],
+               "launches_serve_paged_f32": counts_paged[name],
+               "launches_int8_serve_paged": counts_int8_paged[name]}
         if (name, label) in flash_queued:
             row["queued_ms"] = flash_queued[(name, label)]["queued_ms"]
         if name in ("gs_fixed_recip", "gs_fixed_softmax"):

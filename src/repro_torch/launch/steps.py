@@ -73,9 +73,13 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig) -> Callable:
+def make_decode_step(cfg: ArchConfig, page_size: int = 0, kv_len: int = 0) -> Callable:
+    """``page_size > 0`` builds the paged-cache variant: the step takes a
+    ``page_table`` keyword and reads and writes K/V through it, each row's
+    view cut to ``kv_len`` positions (the engine's ``s_max``)."""
     @torch.no_grad()
-    def decode_step(params, states, cur_index, batch):
-        return api.decode_step(cfg, maybe_dequantize(params), states, cur_index, batch)
+    def decode_step(params, states, cur_index, batch, page_table=None):
+        return api.decode_step(cfg, maybe_dequantize(params), states, cur_index, batch,
+                               page_table=page_table, page_size=page_size, kv_len=kv_len)
 
     return decode_step

@@ -8,7 +8,9 @@ the masked cache; ``flash_chunked`` is the reference's chunked
 online-softmax in tensor ops (the kernel benchmark's baseline for the
 flash rows).  An int8 cache (the quantized serving path) is written
 through ``kv_cast``, which quantizes on the static KV scale, and read
-through ``kv_dequantize``; a float cache just casts.
+through ``kv_dequantize``; a float cache just casts.  The paged pool's
+decode reads and writes a shared page arena through a block table
+(``paged_cache_update``, ``gather_pages``).
 """
 
 from __future__ import annotations
@@ -169,3 +171,44 @@ def cache_update(k_cache: torch.Tensor, v_cache: torch.Tensor,
     k_cache[rows, cur_index] = kv_cast(k_new[:, 0], k_cache.dtype)
     v_cache[rows, cur_index] = kv_cast(v_new[:, 0], v_cache.dtype)
     return k_cache, v_cache
+
+
+# -- paged decode (block-table cache: a shared page arena instead of rows) ----
+#
+# The paged pool (serving/cache.py) replaces per-slot max-length rows with
+# one (n_pages, page_size, KH, hd) arena a layer; each slot owns a block-
+# table row of page ids.  ``paged_cache_update`` writes the new K/V at the
+# (page, offset) of each row's cur_index, and ``gather_pages`` builds the
+# slot's dense view for the unchanged ``decode_attention``.  Positions past
+# cur_index read recycled pages: ``decode_attention`` selects them away
+# (NEG_INF logits, zeroed V rows), so the result is the dense rows' bit for
+# bit, and a page once held by a quarantined slot (possibly NaN) cannot
+# reach its next reader.  Page 0 is the pool's trash page: a freed slot
+# keeps an all-zero table row and cur_index 0, so the writes the tick still
+# makes for it land there.
+
+
+def paged_cache_update(k_arena: torch.Tensor, v_arena: torch.Tensor,
+                       k_new: torch.Tensor, v_new: torch.Tensor,
+                       page_table: torch.Tensor, cur_index: torch.Tensor,
+                       page_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write (b, 1, KH, hd) new K/V through each row's block table
+    (page_table (b, pages_per_slot) page ids) into the (n_pages, page_size,
+    KH, hd) arenas, in place, and return them."""
+    pid = torch.gather(page_table, 1, (cur_index // page_size)[:, None])[:, 0]
+    off = cur_index % page_size
+    k_arena[pid, off] = kv_cast(k_new[:, 0], k_arena.dtype)
+    v_arena[pid, off] = kv_cast(v_new[:, 0], v_arena.dtype)
+    return k_arena, v_arena
+
+
+def gather_pages(arena: torch.Tensor, page_table: torch.Tensor,
+                 length: int = 0) -> torch.Tensor:
+    """(n_pages, page_size, KH, hd) arena x (b, n) block table -> the dense
+    (b, n·page_size, KH, hd) view of each row, cut to its first ``length``
+    positions when ``length`` is given: with the slot pool's row length the
+    view has the slot pool's shape and layout, so decode attention sums in
+    the slot pool's order."""
+    pages = arena[page_table]  # (b, n, page_size, KH, hd)
+    dense = pages.reshape(pages.shape[0], -1, *pages.shape[3:])
+    return dense[:, :length].contiguous() if length else dense

@@ -33,8 +33,15 @@ def prefill(cfg: ArchConfig, params, batch):
     return transformer.prefill(cfg, params, batch["tokens"])
 
 
-def decode_step(cfg: ArchConfig, params, states, cur_index, batch):
-    return transformer.decode_step(cfg, params, states, cur_index, batch["token"])
+def decode_step(cfg: ArchConfig, params, states, cur_index, batch,
+                page_table=None, page_size: int = 0, kv_len: int = 0):
+    """One decode step at per-row positions ``cur_index`` (b,).
+    ``page_table``/``page_size`` switch ``states`` to the paged pool's arena
+    layout (serving/cache.py ``PagedCachePool``); ``kv_len`` cuts each row's
+    dense view of its pages to the slot pool's row length."""
+    return transformer.decode_step(cfg, params, states, cur_index, batch["token"],
+                                   page_table=page_table, page_size=page_size,
+                                   kv_len=kv_len)
 
 
 def make_cache(cfg: ArchConfig, batch: int, s_max: int, dtype, device):

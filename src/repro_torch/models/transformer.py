@@ -44,12 +44,13 @@ def unembed(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 def _stack(cfg: ArchConfig, params: Params, x: torch.Tensor, *, mode: str,
            rope_cs, states: Optional[States] = None,
-           cur_index: Optional[torch.Tensor] = None):
+           cur_index: Optional[torch.Tensor] = None, **paged):
     new_states = []
     for i, layer in enumerate(params["layers"]):
         x, st = blocks.block_apply(
             cfg, layer, x, mode=mode, rope_cs=rope_cs,
-            state=states[i] if states is not None else None, cur_index=cur_index)
+            state=states[i] if states is not None else None, cur_index=cur_index,
+            **paged)
         new_states.append(st)
     return x, new_states
 
@@ -91,13 +92,18 @@ def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor):
 
 
 def decode_step(cfg: ArchConfig, params: Params, states: States,
-                cur_index: torch.Tensor, token: torch.Tensor):
+                cur_index: torch.Tensor, token: torch.Tensor,
+                page_table: Optional[torch.Tensor] = None, page_size: int = 0,
+                kv_len: int = 0):
     """token (b, 1) at per-row positions ``cur_index`` (b,) -> (logits
-    (b, 1, V), states updated in place)."""
+    (b, 1, V), states updated in place).  With ``page_table`` (b,
+    pages_per_slot) the states are the paged pool's per-layer arenas
+    (``blocks.block_apply``)."""
     rope_cs = rope_cos_sin(cur_index[:, None], cfg.head_dim_, cfg.rope_theta)
     x, states = _stack(cfg, params, embed_tokens(cfg, params, token),
                        mode="decode", rope_cs=rope_cs, states=states,
-                       cur_index=cur_index)
+                       cur_index=cur_index, page_table=page_table,
+                       page_size=page_size, kv_len=kv_len)
     return unembed(cfg, params, x), states
 
 

@@ -14,7 +14,7 @@ from typing import List, Optional
 
 import numpy as np
 
-QUEUED = "queued"      # admitted, waiting for a free slot
+QUEUED = "queued"      # admitted (or preempted), waiting for a free slot
 RUNNING = "running"    # prefilled into a slot, decoding
 FINISHED = "finished"  # generation budget exhausted, slot freed
 
@@ -26,7 +26,7 @@ FINISH_NUMERIC = "numeric_error"  # NaN/Inf logits: slot quarantined
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
     """Per-request sampling policy.  ``temperature == 0`` is greedy, the
-    only mode this port serves yet (stochastic sampling: ROADMAP A10).
+    only mode this port serves yet (stochastic sampling: ROADMAP A10a).
     ``stop`` ends generation early when that token is sampled (it is kept
     in the output)."""
 
@@ -71,7 +71,8 @@ class Request:
 @dataclasses.dataclass
 class RequestState:
     """Engine-side view of one in-flight request; ``reason`` overrides the
-    derived ``finish_reason`` on the quarantine path."""
+    derived ``finish_reason`` on the quarantine path, and ``admit_seq``
+    orders admissions (the paged engine preempts the youngest)."""
 
     request: Request
     status: str = QUEUED
@@ -82,6 +83,7 @@ class RequestState:
     t_last_token: float = 0.0
     t_finish: float = 0.0
     reason: Optional[str] = None
+    admit_seq: int = 0
 
     @property
     def cur_index(self) -> int:

@@ -135,6 +135,47 @@ def test_smoke_engine_runs_the_kernels(cuda_device):
                                       generate_sequential(cfg, params, req).tokens)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_paged_engine_matches_the_slot_engine_on_a_2_layer_cut(cuda_device, quant):
+    """Full-width tinyllama cut to 2 layers: the paged engine (page size 16)
+    gives the slot engine's tokens, launches the norm kernel at every norm of
+    every prefill and tick and the flash forward at every prefill, and ends
+    with every page free.  At f32 the arena holds one s_max request and 3
+    pages more, so decode-time appends run out and the youngest request is
+    preempted and replayed; int8 (one activation scale over the tick batch)
+    keeps the slot engine's schedule: the default arena, and no preemption
+    of the youngest while the head of line waits for a slot."""
+    import dataclasses
+
+    cfg = dataclasses.replace(configs.get_config("tinyllama-1.1b", dtype="float32"),
+                              n_layers=2, quant=quant)
+    params = api.init(cfg, seed=0, device=cuda_device)
+    r = np.random.RandomState(1)
+    reqs = [Request(rid=i, prompt=r.randint(0, cfg.vocab, (s,)), max_new_tokens=12)
+            for i, s in enumerate((45, 97, 150, 64, 33))]
+    s_max = 150 + 12
+    slot = Engine(cfg, params, EngineConfig(n_slots=3, s_max=s_max)).run(reqs)
+    n_pages = -(-s_max // 16) + 1 + 3 if quant == "none" else 0
+    stall = 3 if quant == "none" else chip_smoke.NO_STALL_PREEMPT
+    engine = Engine(cfg, params, EngineConfig(n_slots=3, s_max=s_max, pool="paged",
+                                              n_pages=n_pages, prefix="off",
+                                              preempt_after_ticks=stall))
+    ops.reset_launch_counts()
+    res = engine.run(reqs)
+    counts = ops.launch_counts()
+    for req in reqs:
+        np.testing.assert_array_equal(res[req.rid].tokens, slot[req.rid].tokens)
+    m = res.metrics
+    if quant == "none":
+        assert m.preempted >= 1 and m.pool["appended_pages"] >= 1
+    assert m.pool["pages_in_use"] == 0 and m.pool["free_slots"] == 3
+    prefills = m.first_tokens + m.preempted
+    norm = "gs_rmsnorm" if quant == "none" else "gs_fixed_rmsnorm"
+    assert counts[norm] == (2 * cfg.n_layers + 1) * (prefills + m.decode_ticks)
+    assert counts["flash_attention"] == cfg.n_layers * prefills
+
+
 def _err(got, want) -> float:
     """Max error over the plain version's largest element."""
     want = want.float()
