@@ -177,8 +177,8 @@ class Engine:
         self._policy = cfg.policy()  # raises for an unknown quant mode
         self.params = quantize_params(params) if cfg.quant != "none" else params
         self.s_max = self.ecfg.s_max or cfg.max_seq
-        self._pages_per_slot = -(-self.s_max // self.ecfg.page_size)
-        self._n_pages = self.ecfg.n_pages or self.ecfg.n_slots * self._pages_per_slot + 1
+        pages_per_slot = -(-self.s_max // self.ecfg.page_size)
+        self._n_pages = self.ecfg.n_pages or self.ecfg.n_slots * pages_per_slot + 1
         self._prefill = make_prefill_step(cfg)
         # the paged tick cuts each row's view of its pages to s_max, so decode
         # attention runs at the slot pool's shapes
